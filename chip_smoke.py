@@ -9,11 +9,17 @@ unavailable or the port's sources are missing.  Phases, each one line,
 each failing the run when its check fails:
 
 1. setup    — the card's name and power limit, torch/CUDA versions, and
-               the build of the CUDA kernels from ``csrc/`` (seconds).
-2. kernels  — ``gather_rows`` / ``scatter_rows`` against their plain torch
-               versions on the card (exact equality: pure data movement)
-               over a sweep that includes the fig1d shapes, ragged C,
-               all-padding, K = 1 and bf16/fp16 sources.
+               the build of every CUDA source in ``csrc/`` (one nvcc per
+               source, all started together; seconds).
+2. kernels  — every kernel against its plain torch version on the card:
+               ``gather_rows`` / ``scatter_rows`` exactly (pure data
+               movement) over a sweep that includes the fig1d shapes, the
+               path's padded bucket, ragged C, all-padding, K = 1 and
+               bf16/fp16 sources; ``ssd_scan`` at the reduced and the full
+               mamba2-1.3b width, ragged S, strided views of an xBC
+               buffer, fp32 and bf16, and the decay-overflow case, within
+               1e-4 × max |y| (bf16: 2 ulps per element plus that), finite
+               and bitwise repeatable.
 3. goldens  — ``tests/golden/flexa_lasso_V.json`` and
                ``path_lasso_compact_V.json`` on the card, at the tests'
                tolerances.
@@ -21,24 +27,38 @@ each failing the run when its check fails:
                ``FlexaClient().run(SoloSpec(...))``, methods ``flexa`` and
                ``flexa_compiled``, 1000 iterations each; ms per iteration
                beside the two-GEMV bound.
-5. path     — the main path: ``FlexaClient().run(PathSpec(..., compact=
-               True))`` at fig1d, with the kernels' launch counters set to
-               0 just before and read just after (both must be > 0), and
-               their CUDA-event time as a share of the path.
+5. path     — slice 1's main path: ``FlexaClient().run(PathSpec(...,
+               compact=True))`` at fig1d, with the kernels' launch
+               counters set to 0 just before and read just after (both
+               must be > 0), under ``torch.profiler``, whose kernel
+               records give each kernel's launches (they must equal the
+               counters) and device time.
 6. compact  — the compacted path against the masked-dense path at fig1b
                (m=2000, n=10000, 10% nnz) on the golden grid.
+7. serve    — slice 2's main path: full-width mamba2-1.3b (48 layers,
+               random weights from a seeded generator) through
+               ``ServeEngine.generate``, 4 prompts of 4096 tokens and 32
+               new tokens, greedy; ``ssd_scan`` launched once per layer
+               (48, by counter and by profiler), finite logits; prefill
+               ms, decode ms per token, tokens/s, peak memory.  The first
+               4 tokens against a full ``forward`` teacher-forced on the
+               engine's tokens: in bf16 the gaps to the max logit are
+               printed (a top-2 margin below bf16 rounding can flip), and
+               the same weights in fp32 must give each token within 1e-4
+               of the max logit.
 
 Then a ``{"kernels": [...]}`` line (device time, plain time, library
-time and bound of each kernel at the path's shapes) and, last, the
-device line.
+time and bound of each kernel at its path's shapes), the card's name and
+power limit, and, last, the device line.
 """
 import json
 import math
 import subprocess
 import sys
 import time
-import types
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -51,9 +71,24 @@ SOLO_ITERS = 1000
 GATHER_KS = (4096, 16384, 65536)   # capacity buckets timed on Aᵀ at fig1d
 VECTOR_K = 65536                   # bucket of the (n, 1) vector gathers
 PADDED_K_VALID = 35926             # active rows in the 65536 bucket on the path
+FP32_OPS_PER_S = 66.9e12            # H100 SXM, CUDA cores, no tensor cores
+TF32_OPS_PER_S = 495e12             # tensor cores, beside it for reference
 REPLACES = {"gather_rows": "src/repro/kernels/flexa_prox.py:278",
-            "scatter_rows": "src/repro/kernels/flexa_prox.py:308"}
-SOURCE = "src/repro_torch/kernels/csrc/compact_rows.cu"
+            "scatter_rows": "src/repro/kernels/flexa_prox.py:308",
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:83"}
+SOURCES = {"gather_rows": "src/repro_torch/kernels/csrc/compact_rows.cu",
+           "scatter_rows": "src/repro_torch/kernels/csrc/compact_rows.cu",
+           "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu"}
+#: Device-kernel names (substrings of the profiler's records) per wrapper.
+KERNEL_NAMES = {"gather_rows": ("gather_wide", "gather_narrow"),
+                "scatter_rows": ("scatter_narrow",),
+                "ssd_scan": ("ssd_scan_chunked",)}
+SERVE = dict(arch="mamba2-1.3b", batch=4, prompt=4096, new=32, seed=0)
+#: (Bt, S, H, P, N, chunk) of the ssd_scan sweep: reduced, full width.
+SSD_REDUCED = (2, 64, 3, 16, 8, 16)
+SSD_FULL = [(1, 256, 64, 64, 128, 256), (4, 4096, 64, 64, 128, 256),
+            (4, 4133, 64, 64, 128, 256)]
+SSD_32K = (1, 32768, 64, 64, 128, 256)       # a prefill_32k sequence
 
 
 class PhaseError(Exception):
@@ -104,7 +139,32 @@ def bytes_ms(nbytes):
 
 
 # ---------------------------------------------------------------- phases
-def phase_setup(torch, fp):
+def device_kernels(torch, prof, names=KERNEL_NAMES):
+    """From a ``torch.profiler`` run: per wrapper, [device launches, summed
+    device ms] of its kernels, and [records, summed ms] of all device
+    work (kernels, copies, sets) the profile saw."""
+    out = {k: [0, 0.0] for k in names}
+    busy = [0, 0.0]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.duration_ns() / 1e6
+        busy[0] += 1
+        busy[1] += ms
+        for k, subs in names.items():
+            if any(sub in e.name() for sub in subs):
+                out[k][0] += 1
+                out[k][1] += ms
+    check(busy[0] > 0, "the profiler recorded no device work")
+    return out, busy
+
+
+def profiled(torch):
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
+def phase_setup(torch, build, fp, ssd):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -112,11 +172,15 @@ def phase_setup(torch, fp):
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
-    fp.build(verbose=True)
+    t = time.perf_counter()
+    build.build_all(verbose=True)
+    build_wall = time.perf_counter() - t
     fp.library()
+    ssd.library()
     say("setup", card=card, torch=torch.__version__,
         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
-        build_s=round(fp.build_seconds, 3))
+        build_s={k: round(v, 3) for k, v in build.build_seconds.items()},
+        build_wall_s=round(build_wall, 3))
     return card
 
 
@@ -132,7 +196,84 @@ def _plan(torch, n_rows, k_valid, cap, seed, dev):
     return idx.to(dev), inv.to(dev)
 
 
-def phase_kernels(torch, fp, dev):
+def ssd_inputs(torch, shape, dtype, seed, dev, strided=True,
+               overflow=False):
+    """x, dt, A, B, C of an ssd_scan call: x, B and C as views of one
+    (Bt, S, H·P + 2N) buffer when ``strided`` (as the mixer passes them),
+    A = −linspace(1, 16, H) as the model's A_log gives, dt in (0.001,
+    0.301), or 0.1 everywhere for ``overflow`` (Σ dt·|A| over a chunk of
+    256 then passes 88.7 for every head with |A| ≥ 3.5)."""
+    Bt, S, H, P, N, _ = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xBC = torch.randn((Bt, S, H * P + 2 * N), generator=g,
+                      device=dev).to(dtype)
+    x = xBC[..., :H * P].reshape(Bt, S, H, P)
+    B, C = xBC[..., H * P: H * P + N], xBC[..., H * P + N:]
+    if not strided:
+        x, B, C = x.contiguous(), B.contiguous(), C.contiguous()
+    if overflow:
+        dt = torch.full((Bt, S, H), 0.1, device=dev)
+    else:
+        dt = torch.rand((Bt, S, H), generator=g, device=dev) * 0.3 + 1e-3
+    A = -torch.linspace(1.0, 16.0, H, device=dev)
+    return x, dt, A, B, C
+
+
+def ssd_compare(torch, got, want):
+    """Max |Δy|, |Δh| of the kernel against its plain version; fails
+    unless finite and y within 1e-4 × max |y| (bf16: plus 2 bf16 ulps of
+    each element), h within 1e-4 × max |h|."""
+    (y, h), (y0, h0) = got, want
+    check(y.dtype == y0.dtype and y.shape == y0.shape and h.shape ==
+          h0.shape, f"ssd_scan: {y.dtype}{tuple(y.shape)} vs "
+          f"{y0.dtype}{tuple(y0.shape)}")
+    yf, y0f = y.float(), y0.float()
+    check(bool(torch.isfinite(yf).all() and torch.isfinite(h).all()),
+          "ssd_scan: non-finite output")
+    check(bool(torch.isfinite(y0f).all()), "ssd_scan plain: non-finite")
+    dy = (yf - y0f).abs()
+    bound = 1e-4 * float(y0f.abs().max())
+    if y.dtype == torch.bfloat16:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            y0f.abs().clamp_min(2.0 ** -126))) - 7)
+        ok = bool((dy <= 2 * ulp + bound).all())
+    else:
+        ok = float(dy.max()) <= bound
+    dh = float((h - h0).abs().max())
+    check(ok and dh <= 1e-4 * float(h0.abs().max()),
+          f"ssd_scan differs from its plain version: max |dy| "
+          f"{float(dy.max())} (bound {bound}), max |dh| {dh}")
+    return float(dy.max()), dh
+
+
+def ssd_sweep(torch, ssd, dev):
+    """ssd_scan against its plain version over the sweep; every launch
+    repeated once, bitwise."""
+    cases = []
+    for shape in [SSD_REDUCED] + SSD_FULL:
+        for strided in ((False, True) if shape[1] <= 256 else (True,)):
+            cases.append((shape, strided, False))
+    cases.append(((1, 512, 64, 64, 128, 256), True, True))    # overflow
+    err = {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]}
+    for i, (shape, strided, overflow) in enumerate(cases):
+        for name in err:
+            args = ssd_inputs(torch, shape, getattr(torch, name), seed=i,
+                              dev=dev, strided=strided, overflow=overflow)
+            got = ssd.ssd_scan(*args, chunk=shape[-1])
+            again = ssd.ssd_scan(*args, chunk=shape[-1])
+            check(torch.equal(got[0], again[0]) and torch.equal(
+                got[1], again[1]), f"ssd_scan {shape} {name}: a second "
+                "launch gave other bits")
+            dy, dh = ssd_compare(torch, got, ssd.ssd_scan.plain(
+                *args, chunk=shape[-1]))
+            err[name] = [max(err[name][0], dy), max(err[name][1], dh)]
+            del args, got, again
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return err, len(cases) * len(err)
+
+
+def phase_kernels(torch, fp, ssd, dev):
     err = {"gather_rows": 0.0, "scatter_rows": 0.0}
     times = {}
 
@@ -185,7 +326,10 @@ def phase_kernels(torch, fp, dev):
                 fp.scatter_rows.plain(vals, inv, base))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    say("kernels", max_abs_err=err, gather_ms=times)
+    ssd_err, n_ssd = ssd_sweep(torch, ssd, dev)
+    err["ssd_scan"] = max(e[0] for e in ssd_err.values())
+    say("kernels", max_abs_err=err, gather_ms=times, ssd_scan_cases=n_ssd,
+        ssd_scan_max_abs_err_y_h=ssd_err)
     return err
 
 
@@ -276,68 +420,40 @@ def phase_solo(torch, dev):
 
 
 def phase_path(torch, fp, p):
-    """The main path, with each kernel launch and pack_columns call timed
-    by CUDA events recorded around it (the wrappers count launches).
-
-    The timing shims stand in for the dispatch's reference to the
-    kernel module (``ops._fp``): the wrappers look their own names up in
-    that module to count launches, so the module's attributes stay."""
+    """Slice 1's main path under ``torch.profiler``: the wrappers'
+    counters give the launches, the profiler's kernel records the same
+    count and each kernel's device time."""
     from repro_torch.client import FlexaClient, PathSpec
     from repro_torch.config.base import SolverConfig
-    from repro_torch.kernels import ops
     from repro_torch.obs import trace as obs
     from repro_torch.path.driver import _problem_at
     from repro_torch.path.screening import block_scores
     from repro_torch.problems.families import get_family
-    from repro_torch.solvers import compaction
-
-    events = {"gather_rows": [], "gather_rows_wide": [],
-              "scatter_rows": [], "pack_columns": []}
-
-    def timed(key, fn):
-        def wrapper(*args):
-            t0, t1 = (torch.cuda.Event(enable_timing=True)
-                      for _ in range(2))
-            t0.record()
-            out = fn(*args)
-            t1.record()
-            events[key].append((t0, t1))
-            return out
-        return wrapper
 
     gather, scatter = fp.gather_rows, fp.scatter_rows
-    pack_columns = compaction.CompactPlan.pack_columns
-    dispatch_fp = ops._fp
-
-    def gather_shim(src, idx):
-        key = "gather_rows_wide" if src.shape[1] > 1 else "gather_rows"
-        return timed(key, gather)(src, idx)
-
-    def scatter_shim(vals, inv, base):
-        return timed("scatter_rows", scatter)(vals, inv, base)
-
-    ops._fp = types.SimpleNamespace(gather_rows=gather_shim,
-                                    scatter_rows=scatter_shim)
-    compaction.CompactPlan.pack_columns = timed("pack_columns",
-                                                pack_columns)
     client = FlexaClient(solver=SolverConfig(tol=1e-6, max_iters=20000))
     spec = PathSpec(problem=p, n_points=10, lam_min_ratio=0.1, compact=True)
     tracer = obs.Tracer()
-    try:
-        gather.launches = scatter.launches = 0
-        torch.cuda.synchronize()
+    gather.launches = scatter.launches = 0
+    torch.cuda.synchronize()
+    with profiled(torch) as prof:
         t = time.perf_counter()
         with obs.tracing(tracer):
             r = client.run(spec)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        launches = {"gather_rows": gather.launches,
-                    "scatter_rows": scatter.launches}
-    finally:
-        ops._fp = dispatch_fp
-        compaction.CompactPlan.pack_columns = pack_columns
+    launches = {"gather_rows": gather.launches,
+                "scatter_rows": scatter.launches}
+    t = time.perf_counter()
+    per_kernel, busy = device_kernels(torch, prof, {
+        k: KERNEL_NAMES[k] for k in launches})
+    read_s = time.perf_counter() - t
+    del prof
     check(launches["gather_rows"] > 0 and launches["scatter_rows"] > 0,
           f"kernel not launched on the path: {launches}")
+    check(all(per_kernel[k][0] == n for k, n in launches.items()),
+          f"profiler launches {per_kernel} differ from the counters "
+          f"{launches}")
     check(bool(r.converged.all()), f"path not converged: {r.converged}")
     check(bool((r.x[0] == 0).all()) and r.support[-1] > 0, "path support")
     fam = get_family("lasso")
@@ -349,16 +465,13 @@ def phase_path(torch, fp, p):
         if zero.any():
             kkt = max(kkt, float((s[zero] - lam).max() / lam))
     check(kkt <= 1e-3, f"KKT violated on zero blocks: {kkt}")
-    spans = {k: [a.elapsed_time(b) for a, b in v] for k, v in events.items()}
-    ms = {k: sum(v) for k, v in spans.items()}
     # host wall time of each solved point (the driver reads every point's
     # result back, so its span ends after the device work)
     point_s = [0.0] * len(r.lambdas)
     for sp in tracer.spans:
         if sp.name == "path.point":
             point_s[sp.args["k"]] = round(sp.t1 - sp.t0, 3)
-    gather_wide_ms = ms["gather_rows_wide"]
-    kernel_ms = ms["gather_rows"] + gather_wide_ms + ms["scatter_rows"]
+    kernel_ms = sum(v[1] for v in per_kernel.values())
     say("path", instance="fig1d", wall_s=round(wall, 3),
         point_wall_s=point_s,
         iters=[int(i) for i in r.iters],
@@ -369,13 +482,14 @@ def phase_path(torch, fp, p):
         # every iteration reads its (m × width) matrix twice, fp32
         gemv_bound_s=round(bytes_ms(8 * r.device_flops) / 1e3, 3),
         launches=launches,
-        kernel_event_ms=round(kernel_ms, 3),
-        # per wrapper: calls, summed and longest event span (ms)
-        event_ms={k: [len(v), round(sum(v), 3), round(max(v, default=0), 3)]
-                  for k, v in spans.items()},
+        # per kernel, from the profiler: [launches, device ms]
+        profiler_kernels={k: [n, round(ms, 4)]
+                          for k, (n, ms) in per_kernel.items()},
+        kernel_device_ms=round(kernel_ms, 4),
         kernel_share=kernel_ms / (wall * 1e3),
-        transposed_copy_ms=round(ms["pack_columns"] - gather_wide_ms, 3),
-        pack_columns_calls=len(events["pack_columns"]),
+        device_records=busy[0], device_busy_s=round(busy[1] / 1e3, 3),
+        device_busy_share=busy[1] / (wall * 1e3),
+        profile_read_s=round(read_s, 2),
         max_zero_block_kkt=kkt)
     return r, launches
 
@@ -416,7 +530,155 @@ def phase_compact_vs_dense(torch, dev):
         compact_s=secs[True], dense_s=secs[False])
 
 
-def kernel_line(torch, fp, r, launches, err, dev):
+def phase_serve(torch, ssd, dev):
+    """Slice 2's main path: full-width mamba2-1.3b through
+    ``ServeEngine.generate`` (batch 4 × prompt 4096, 32 new tokens,
+    greedy)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config(SERVE["arch"])
+    nb, lp, new = SERVE["batch"], SERVE["prompt"], SERVE["new"]
+    t = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SERVE["seed"])
+    model = T.init_params(cfg, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    eng = ServeEngine(cfg, model, max_len=lp + new, device=dev)
+    prompts = np.random.default_rng(SERVE["seed"]).integers(
+        0, cfg.vocab_size, (nb, lp)).astype(np.int32)
+    # warm-up: cuBLAS handles, the weight casts, the kernel's first launch
+    eng.generate(prompts[:, :512], max_new_tokens=2)
+
+    # the prefill alone (generate of one token), under the profiler
+    ssd.ssd_scan.launches = 0
+    torch.cuda.synchronize()
+    with profiled(torch) as prof:
+        t = time.perf_counter()
+        eng.generate(prompts, max_new_tokens=1)
+        torch.cuda.synchronize()
+        prof_prefill_s = time.perf_counter() - t
+    prof_launches = ssd.ssd_scan.launches
+    per_kernel, busy = device_kernels(torch, prof, {
+        "ssd_scan": KERNEL_NAMES["ssd_scan"]})
+    del prof
+    check(per_kernel["ssd_scan"][0] == cfg.num_layers == prof_launches,
+          f"ssd_scan launches in the prefill: profiler "
+          f"{per_kernel['ssd_scan'][0]}, counter {prof_launches}, want "
+          f"{cfg.num_layers}")
+    # the prefill alone, host clock
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eng.generate(prompts, max_new_tokens=1)
+    prefill_s = time.perf_counter() - t
+    # prefill + 8 decode steps under the profiler: device busy in decode
+    with profiled(torch) as prof:
+        t = time.perf_counter()
+        eng.generate(prompts, max_new_tokens=9)
+        torch.cuda.synchronize()
+        prof_decode_s = time.perf_counter() - t - prof_prefill_s
+    _, busy9 = device_kernels(torch, prof, {})
+    del prof
+    decode_busy_share = (busy9[1] - busy[1]) / (prof_decode_s * 1e3)
+
+    # the main run
+    torch.cuda.reset_peak_memory_stats()
+    ssd.ssd_scan.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = eng.generate(prompts, max_new_tokens=new)
+    wall = time.perf_counter() - t
+    launches = ssd.ssd_scan.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == cfg.num_layers, f"ssd_scan launched {launches} "
+          f"times on the serve path, want {cfg.num_layers}")
+    check(res.tokens.shape == (nb, new) and bool(
+        ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
+        f"generated tokens {res.tokens.shape}")
+    check(bool(np.isfinite(res.prefill_logits).all()),
+          "non-finite prefill logits")
+
+    # the first tokens against full forwards, teacher-forced: reported
+    # in bf16, checked in fp32 (same weights, fp32 activations)
+    gaps = {"bfloat16": greedy_gaps(torch, T, cfg, model, prompts,
+                                    res.tokens, dev)}
+    cfg32 = cfg.replace(dtype="float32")
+    eng32 = ServeEngine(cfg32, model, max_len=lp + new, device=dev)
+    ssd.ssd_scan.launches = 0
+    res32 = eng32.generate(prompts, max_new_tokens=4)
+    check(ssd.ssd_scan.launches == cfg.num_layers, "fp32 prefill launched "
+          f"ssd_scan {ssd.ssd_scan.launches} times")
+    gaps["float32"] = greedy_gaps(torch, T, cfg32, model, prompts,
+                                  res32.tokens, dev)
+    check(max(gaps["float32"]) <= 1e-4, f"fp32: an engine token is "
+          f"{max(gaps['float32'])} below the forward's max logit")
+    torch.cuda.synchronize()
+    decode_ms = (wall - prefill_s) / (new - 1) * 1e3
+    ssd_ms = per_kernel["ssd_scan"][1]
+    say("serve", arch=cfg.name, layers=cfg.num_layers, batch=nb,
+        prompt=lp, new_tokens=new, dtype=cfg.dtype,
+        init_s=round(init_s, 3), wall_s=round(wall, 4),
+        prefill_ms=round(prefill_s * 1e3, 3),
+        decode_ms_per_token=round(decode_ms, 4),
+        tokens_per_s=round(nb * new / wall, 3),
+        decode_tokens_per_s=round(nb / decode_ms * 1e3, 3),
+        prefill_tokens_per_s=round(nb * lp / prefill_s, 1),
+        peak_memory_gib=round(peak / 2 ** 30, 3),
+        launches={"ssd_scan": launches},
+        profiled_prefill_ms=round(prof_prefill_s * 1e3, 3),
+        ssd_scan_device_ms=round(ssd_ms, 3),
+        ssd_scan_share_of_prefill=ssd_ms / (prof_prefill_s * 1e3),
+        prefill_device_busy_ms=round(busy[1], 3),
+        prefill_device_busy_share=busy[1] / (prof_prefill_s * 1e3),
+        # (device busy ms, wall ms) of 8 profiled decode steps, minus the
+        # profiled prefill's
+        decode_device_busy_share=decode_busy_share,
+        profiled_decode_ms_per_token=round(prof_decode_s * 1e3 / 8, 3),
+        # per step, the largest (max logit − engine token's logit) of a
+        # full forward teacher-forced on the engine's tokens
+        max_logit_gap_first_4=gaps,
+        first_tokens=res.tokens[0, :8].tolist())
+    del model, eng, eng32
+    torch.cuda.empty_cache()
+    return launches
+
+
+def greedy_gaps(torch, T, cfg, model, prompts, tokens, dev):
+    """For each of the first 4 engine tokens, the largest gap (over the
+    batch) between a full forward's max logit and the token's logit, the
+    forward teacher-forced on the engine's earlier tokens."""
+    seq, gaps = prompts, []
+    for step in range(4):
+        lg, _ = T.forward(cfg, model, {"tokens": seq})
+        check(bool(torch.isfinite(lg).all()),
+              f"{cfg.dtype} forward {step}: non-finite logits")
+        last = lg[:, -1, :]
+        tok = torch.as_tensor(tokens[:, step], device=dev).long()
+        gap = last.max(dim=-1).values - last.gather(1, tok[:, None])[:, 0]
+        gaps.append(float(gap.max()))
+        seq = np.concatenate([seq, tokens[:, step: step + 1]], axis=1)
+        del lg, last
+    return gaps
+
+
+def ssd_work(shape, itemsize):
+    """(FLOPs, bytes) an ssd_scan call needs at ``shape``: G = C·Bᵀ once
+    per (batch row, chunk) over the lower triangle, then per head W·X
+    over the triangle, C·h and the state update; each input read once
+    (x, B, C in the activation dtype, dt fp32), y and h written once."""
+    Bt, S, H, P, N, L = shape
+    fma = 0
+    for c0 in range(0, S, L):
+        lc = min(L, S - c0)
+        tri = lc * (lc + 1) // 2
+        fma += Bt * (tri * N + H * (tri * P + 2 * lc * N * P))
+    nbytes = (2 * Bt * S * H * P * itemsize + 2 * Bt * S * N * itemsize
+              + Bt * S * H * 4 + H * 4 + Bt * H * N * P * 4)
+    return 2 * fma, nbytes
+
+
+def kernel_line(torch, fp, ssd, r, launches, serve_launches, err, dev):
     """Each kernel timed at the path's largest shapes: the gather of Aᵀ
     at the widest bucket K (a full bucket, so ``index_select`` computes
     the same function), and the scatter of K values into (n, 1).
@@ -451,7 +713,7 @@ def kernel_line(torch, fp, r, launches, err, dev):
     rows = []
     for name, t, shape in (("gather_rows", g, f"src ({n}, {m}) K={K}"),
                            ("scatter_rows", s, f"base ({n}, 1) K={K}")):
-        rows.append({"name": name, "route": "cuda", "source": SOURCE,
+        rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name],
                      "launches": launches[name],
                      "max_abs_err": err[name],
@@ -462,7 +724,47 @@ def kernel_line(torch, fp, r, launches, err, dev):
                      "library_ms": round(t["library_ms"], 5),
                      "eager_ms": round(t["eager_ms"], 5),
                      "shape": shape})
+    rows.append(ssd_row(torch, ssd, serve_launches, err["ssd_scan"], dev))
     return rows
+
+
+def ssd_row(torch, ssd, launches, err, dev):
+    """ssd_scan at the serve path's per-layer shape (4 × 4096, bf16, x/B/C
+    strided as the mixer passes them) and at a prefill_32k sequence
+    (1 × 32768).  Times from CUDA events around back-to-back eager
+    launches (a launch takes milliseconds, so host overhead is noise)."""
+    timed = {}
+    for key, shape in (("serve", SSD_FULL[1]), ("prefill_32k", SSD_32K)):
+        args = ssd_inputs(torch, shape, torch.bfloat16, seed=21, dev=dev)
+        flops, nbytes = ssd_work(shape, 2)
+        t_bytes, t_ops = bytes_ms(nbytes), flops / FP32_OPS_PER_S * 1e3
+        timed[key] = {
+            "shape": list(shape),
+            "ms": cuda_ms(torch, lambda: ssd.ssd_scan(
+                *args, chunk=shape[-1]), reps=5),
+            "plain_ms": cuda_ms(torch, lambda: ssd.ssd_scan.plain(
+                *args, chunk=shape[-1]), reps=3),
+            "flops": flops, "bytes": nbytes,
+            "bytes_ms": t_bytes, "fp32_ops_ms": t_ops,
+            "tf32_ops_ms": flops / TF32_OPS_PER_S * 1e3,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        del args
+        torch.cuda.empty_cache()
+    t = timed["serve"]
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": SOURCES["ssd_scan"], "replaces": REPLACES["ssd_scan"],
+            "launches": launches, "max_abs_err": err,
+            "ms": round(t["ms"], 5), "plain_ms": round(t["plain_ms"], 5),
+            "bound_ms": round(t["bound_ms"], 5), "bound_by": t["bound_by"],
+            # no single PyTorch call computes the SSD scan
+            "library_ms": None,
+            "shape": "x (4, 4096, 64, 64) bf16, B/C (4, 4096, 128), "
+                     "chunk 256",
+            "peak": "fp32 66.9 TFLOP/s (CUDA cores); TF32 495 beside it",
+            "timed": {k: {kk: (round(vv, 5) if isinstance(vv, float)
+                               else vv) for kk, vv in v.items()}
+                      for k, v in timed.items()}}
 
 
 def main() -> int:
@@ -475,15 +777,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 3
+    from repro_torch.kernels import build
     from repro_torch.kernels import flexa_prox as fp
+    from repro_torch.kernels import ssd_scan as ssd
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     phase = "setup"
     try:
-        card = phase_setup(torch, fp)
+        card = phase_setup(torch, build, fp, ssd)
         phase = "kernels"
-        err = phase_kernels(torch, fp, dev)
+        err = phase_kernels(torch, fp, ssd, dev)
         phase = "goldens"
         phase_goldens(torch, dev)
         phase = "solo"
@@ -494,8 +798,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "compact"
         phase_compact_vs_dense(torch, dev)
+        phase = "serve"
+        serve_launches = phase_serve(torch, ssd, dev)
         phase = "kernel timing"
-        rows = kernel_line(torch, fp, r, launches, err, dev)
+        rows = kernel_line(torch, fp, ssd, r, launches, serve_launches, err,
+                           dev)
     except Exception as exc:                          # report and fail
         print(f"FAIL {phase}: {type(exc).__name__}: {exc}", flush=True)
         raise

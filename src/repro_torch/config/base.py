@@ -3,6 +3,8 @@
 :class:`SolverConfig` is the reference's solver config field for field;
 :class:`ClientConfig` keeps the fields the ``inline`` backend reads plus
 ``device`` — where the client runs its work (``"cuda"`` by default).
+:class:`ModelConfig` and :class:`ShapeConfig` are the reference's LM
+architecture and workload-cell configs field for field.
 """
 from __future__ import annotations
 
@@ -54,3 +56,75 @@ class ClientConfig:
 
     def replace(self, **kw: Any) -> "ClientConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture hyperparameters (one per ``--arch`` id).
+
+    ``family`` selects the block stack: ``dense``, ``moe``, ``ssm``
+    (attention-free Mamba2), ``hybrid``, ``encdec`` or ``vlm``, as in the
+    reference; the port runs ``ssm`` so far.
+    """
+
+    name: str
+    family: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+
+    # --- SSM (mamba2 / zamba2) ---
+    ssm_state: int = 0
+    ssm_headdim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    ssm_conv_width: int = 4
+
+    # --- MoE ---
+    num_experts: int = 0
+    moe_top_k: int = 0
+    capacity_factor: float = 1.25
+
+    # --- hybrid (zamba2) ---
+    attn_every: int = 0
+
+    # --- encoder-decoder (seamless) ---
+    enc_layers: int = 0
+
+    # --- positional encoding ---
+    rope_theta: float = 10_000.0
+    use_mrope: bool = False
+
+    # --- misc ---
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    attn_window: int = 0
+    source: str = ""
+
+    @property
+    def d_inner(self) -> int:
+        """Mamba2 inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_headdim if self.ssm_headdim else 0
+
+    def replace(self, **kw: Any) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One workload cell: ``kind`` is ``train``, ``prefill`` or
+    ``decode`` (one new token against a cache of ``seq_len``)."""
+
+    name: str
+    kind: str
+    seq_len: int
+    global_batch: int

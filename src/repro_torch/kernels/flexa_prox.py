@@ -15,11 +15,9 @@ The plain versions are :func:`repro_torch.kernels.ref.gather_rows_ref`
 and :func:`~repro_torch.kernels.ref.scatter_rows_ref`, also reachable as
 ``gather_rows.plain`` / ``scatter_rows.plain``.
 
-Build: ``nvcc -gencode arch=compute_90a,code=sm_90a -O3`` into a shared
-library with a plain C interface under ``build/repro_torch/`` at the root
-of the checkout, at first use (the file name carries a hash of the
-source, so an edited source is rebuilt), and loaded with ``ctypes``.
-Nothing is built or imported at module import.  A failed build or
+Build: ``csrc/compact_rows.cu`` into its own shared library, through
+:mod:`repro_torch.kernels.build` at first use (nothing is built or
+imported at module import), loaded with ``ctypes``.  A failed build or
 launch raises; there is no fallback.
 
 Each wrapper counts its launches in a plain integer attribute,
@@ -29,74 +27,22 @@ where the kernel is launched.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import ref
-
-SOURCE = Path(__file__).resolve().parent / "csrc" / "compact_rows.cu"
-#: Build directory (listed in .gitignore): <checkout>/build/repro_torch.
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+from repro_torch.kernels import build, ref
 
 #: dtype codes of the C interface (enum DType in compact_rows.cu).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _lib = None
-#: Seconds the last nvcc build in this process took (0.0: none ran).
-build_seconds = 0.0
-
-
-def find_nvcc() -> str:
-    """Path of ``nvcc`` (PATH, then the toolkit's default prefix)."""
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch "
-                       "are built from source at first use")
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libcompact_rows-{digest[:16]}.so"
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/compact_rows.cu`` unless its library is on disk."""
-    global build_seconds
-    path = library_path()
-    if path.exists():
-        return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, path)
-    return path
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = build.load("compact_rows")
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
         lib.gather_rows_launch.argtypes = [vp, ctypes.c_int, vp, vp, ll, ll,
                                            vp]

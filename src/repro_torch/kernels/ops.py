@@ -1,5 +1,5 @@
 """Kernel dispatch: the CUDA kernel for a tensor on the card, the plain
-torch version for a tensor on the CPU.
+torch version for a tensor on the CPU, as ``repro.kernels.ops`` does.
 
 The device of the data decides, and nothing else: there is no switch
 that sends a CUDA tensor to the plain version, and a kernel that fails
@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.kernels import flexa_prox as _fp
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def _index(idx, n_rows: int, name: str, device) -> torch.Tensor:
@@ -58,3 +59,25 @@ def scatter_blocks(vals: torch.Tensor, inv, base: torch.Tensor
     if base.device.type == "cuda":
         return _fp.scatter_rows(vals.contiguous(), inv, base.contiguous())
     raise ValueError(f"no scatter_rows kernel for device {base.device}")
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 64):
+    """Mamba2 SSD chunked scan → (y in x's dtype, final state fp32).
+
+    Shapes as in :func:`repro_torch.kernels.ref.ssd_scan_ref`; S need
+    not be a multiple of ``chunk``: the plain version pads with dt = 0
+    as the reference does (:func:`~repro_torch.kernels.ref.ssd_scan_ragged`),
+    and the CUDA kernel masks the ragged chunk itself.
+    """
+    _on(x.device, dt, A, B, C)
+    if x.device.type == "cpu":
+        return ref.ssd_scan_ragged(x, dt, A, B, C, chunk=chunk)
+    if x.device.type == "cuda":
+        return _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    raise ValueError(f"no ssd_scan kernel for device {x.device}")
+
+
+def ssd_decode(x_t, dt_t, A, B_t, C_t, h):
+    """Single-token SSD step: plain torch on every device (a few small
+    products; the reference has no kernel for it)."""
+    return ref.ssd_decode_ref(x_t, dt_t, A, B_t, C_t, h)

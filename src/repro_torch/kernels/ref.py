@@ -1,10 +1,14 @@
 """Plain torch versions of the port's kernels (the semantic definitions).
 
-Each ``*_ref`` is the contract its CUDA kernel in
-:mod:`repro_torch.kernels.flexa_prox` must meet bit for bit, written as
-the reference's ``repro.kernels.ref`` oracle is: an index with −1 mapped
-to 0, then ``torch.where``.  The dispatch (:mod:`repro_torch.kernels.ops`)
-runs these for tensors on the CPU only.
+``gather_rows_ref`` / ``scatter_rows_ref`` are the contracts the CUDA
+kernels of :mod:`repro_torch.kernels.flexa_prox` meet bit for bit,
+written as the reference's ``repro.kernels.ref`` oracle is: an index
+with −1 mapped to 0, then ``torch.where``.  ``ssd_scan_ref`` is the
+contract of :mod:`repro_torch.kernels.ssd_scan` up to summation order;
+``ssd_scan_ragged`` runs it on any S, padded as the reference's
+dispatch pads; ``ssd_decode_ref`` is the single-token step, which has no
+kernel.  The dispatch (:mod:`repro_torch.kernels.ops`) runs these for
+tensors on the CPU only.
 """
 from __future__ import annotations
 
@@ -29,3 +33,90 @@ def scatter_rows_ref(vals: torch.Tensor, inv: torch.Tensor,
     inv = inv.to(torch.int64)
     taken = vals[torch.clamp_min(inv, 0)].to(base.dtype)
     return torch.where((inv >= 0).unsqueeze(-1), taken, base)
+
+
+def ssd_scan_ref(x, dt, A, B, C, *, chunk: int = 64):
+    """State-space dual (SSD) recurrence, chunked.
+
+    Per head (state N, head dim P), with A < 0:
+        h_t = exp(dt_t·A)·h_{t−1} + dt_t·(B_t ⊗ x_t),   y_t = C_tᵀ h_t
+
+    x (Bt, S, H, P), dt (Bt, S, H), A (H,), B and C (Bt, S, N) (one
+    B/C group); S a multiple of ``chunk``.  Returns y (Bt, S, H, P) in
+    x's dtype and the final state h (Bt, H, N, P) fp32.
+
+    The algebra of the reference's ``ref.ssd_scan_ref`` (intra-chunk
+    quadratic term, per-chunk states, a scan over chunks), with one
+    difference: the decay mask exp(s_t − s_u) is formed only for u ≤ t,
+    as the TPU kernel forms it (``jnp.where`` before the product).  The
+    reference's oracle multiplies exp(s_t − s_u) by the triangle after
+    the exp; for u > t the exponent is positive, overflows to inf at
+    chunk 256 with A = −16, and inf · 0 gives NaN there.
+    """
+    Bt, S, H, P = x.shape
+    N = B.shape[-1]
+    if S % chunk:
+        raise ValueError(f"S={S} is not a multiple of chunk={chunk}")
+    nc = S // chunk
+    f32 = torch.float32
+    xf = x.to(f32).reshape(Bt, nc, chunk, H, P)
+    dtf = dt.to(f32).reshape(Bt, nc, chunk, H)
+    Bf = B.to(f32).reshape(Bt, nc, chunk, N)
+    Cf = C.to(f32).reshape(Bt, nc, chunk, N)
+
+    s = torch.cumsum(dtf * A.to(f32), dim=2)        # (Bt, nc, L, H)
+    s_last = s[:, :, -1:, :]
+
+    G = torch.einsum("bctn,bcun->bctu", Cf, Bf)     # (Bt, nc, L, L)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=x.device).tril()[:, :, None]
+    diff = s[:, :, :, None, :] - s[:, :, None, :, :]  # (Bt, nc, L, L, H)
+    M = torch.exp(diff.masked_fill(~tri, float("-inf")))   # 0 for u > t
+    W = G[..., None] * M * dtf[:, :, None, :, :]
+    y_intra = torch.einsum("bctuh,bcuhp->bcthp", W, xf)
+
+    decay_u = torch.exp(s_last - s)                 # exp(s_L − s_u)
+    Hc = torch.einsum("bcuh,bcun,bcuhp->bchnp", decay_u * dtf, Bf, xf)
+    chunk_decay = torch.exp(s_last[:, :, 0, :])     # (Bt, nc, H)
+    h = torch.zeros((Bt, H, N, P), dtype=f32, device=x.device)
+    h_prevs = []
+    for c in range(nc):                             # state before chunk c
+        h_prevs.append(h)
+        h = chunk_decay[:, c, :, None, None] * h + Hc[:, c]
+    h_prev = torch.stack(h_prevs, dim=1)            # (Bt, nc, H, N, P)
+
+    y_inter = torch.einsum("bctn,bchnp->bcthp", Cf, h_prev) \
+        * torch.exp(s)[..., None]
+    y = (y_intra + y_inter).reshape(Bt, S, H, P)
+    return y.to(x.dtype), h
+
+
+def ssd_scan_ragged(x, dt, A, B, C, *, chunk: int):
+    """:func:`ssd_scan_ref` on any S: padded to a chunk multiple with
+    dt = 0 — algebraically inert: the decay exp(0·A) = 1 keeps the state
+    and the update dt·(B ⊗ x) = 0 adds nothing — and y cut back to S, as
+    the reference's ``ops.ssd_scan`` does."""
+    S = x.shape[1]
+    pad = (-S) % chunk
+    if not pad:
+        return ssd_scan_ref(x, dt, A, B, C, chunk=chunk)
+
+    def padw(t):
+        return torch.nn.functional.pad(t, [0, 0] * (t.dim() - 2) + [0, pad])
+    y, h = ssd_scan_ref(padw(x), padw(dt), A, padw(B), padw(C), chunk=chunk)
+    return y[:, :S], h
+
+
+def ssd_decode_ref(x_t, dt_t, A, B_t, C_t, h):
+    """Single-token SSD update (serving path).
+
+    x_t (Bt, H, P), dt_t (Bt, H), B_t and C_t (Bt, N), h (Bt, H, N, P)
+    fp32.  Returns y_t (Bt, H, P) in x_t's dtype and the new state.
+    """
+    f32 = torch.float32
+    a = torch.exp(dt_t.to(f32) * A[None, :])                    # (Bt, H)
+    upd = torch.einsum("bn,bhp->bhnp", B_t.to(f32),
+                       x_t.to(f32) * dt_t[..., None])
+    h_new = a[:, :, None, None] * h + upd
+    y = torch.einsum("bn,bhnp->bhp", C_t.to(f32), h_new)
+    return y.to(x_t.dtype), h_new

@@ -1,0 +1,113 @@
+"""CUDA kernel of the Mamba2 SSD chunked scan: :func:`ssd_scan`.
+
+It replaces the Pallas TPU kernel ``ssd_scan`` of
+``src/repro/kernels/ssd_scan.py:83`` (``pallas_call`` :97): per (batch
+row, head), a sequential walk over chunks of ``chunk`` rows with the
+(N, P) fp32 state carried across them, y in x's dtype and the final
+state in fp32.  The source (``csrc/ssd_scan.cu``) says what bounds it
+and how it is laid out.  The plain version is
+:func:`repro_torch.kernels.ref.ssd_scan_ragged`, also reachable as
+``ssd_scan.plain``: it pads a ragged S with dt = 0, while the kernel
+masks the ragged last chunk itself, which gives the same result.
+
+Build: ``csrc/ssd_scan.cu`` into its own shared library through
+:mod:`repro_torch.kernels.build` at first use, loaded with ``ctypes``.
+A failed build or launch raises; there is no fallback.  The wrapper
+counts its launches in ``ssd_scan.launches``, incremented only where
+the kernel is launched.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+#: dtype codes of the C interface (enum DType in ssd_scan.cu).
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: Largest head dim and state size the kernel's register tiles hold.
+MAX_P, MAX_N = 64, 128
+
+_lib = None
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        lib = build.load("ssd_scan")
+        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.ssd_scan_launch.argtypes = [vp, vp, vp, vp, vp, ci, vp, vp, ll,
+                                        ll, ci, ci, ci, ci, vp, vp]
+        lib.ssd_scan_launch.restype = ci
+        lib.ssd_scan_smem_bytes.argtypes = [ci, ci, ci]
+        lib.ssd_scan_smem_bytes.restype = ctypes.c_size_t
+        _lib = lib
+    return _lib
+
+
+def _on_card(name: str, t: torch.Tensor, ndim: int, dtypes, device) -> None:
+    if not t.is_cuda or t.device != device:
+        raise ValueError(f"{name} must be a CUDA tensor on {device}, got "
+                         f"{t.device}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape "
+                         f"{tuple(t.shape)}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} dtype {t.dtype} not in {dtypes}")
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, *, chunk: int
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """CUDA SSD scan → (y (Bt, S, H, P) in x's dtype, h (Bt, H, N, P) fp32).
+
+    ``x`` (Bt, S, H, P) and ``B``, ``C`` (Bt, S, N) in one dtype (fp32,
+    bf16 or fp16), any strides; ``dt`` (Bt, S, H) fp32, any strides;
+    ``A`` (H,) fp32.  All on one CUDA device.  S may be ragged against
+    ``chunk``; P ≤ 64 and N ≤ 128.
+    """
+    dev = x.device
+    _on_card("x", x, 4, tuple(DTYPE_CODES), dev)
+    _on_card("B", B, 3, (x.dtype,), dev)
+    _on_card("C", C, 3, (x.dtype,), dev)
+    _on_card("dt", dt, 3, (torch.float32,), dev)
+    _on_card("A", A, 1, (torch.float32,), dev)
+    Bt, S, H, P = x.shape
+    N = B.shape[-1]
+    if (B.shape != (Bt, S, N) or C.shape != (Bt, S, N)
+            or dt.shape != (Bt, S, H) or A.shape != (H,)):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
+                         f"{tuple(B.shape)}, C {tuple(C.shape)}")
+    if not (1 <= P <= MAX_P and 1 <= N <= MAX_N and chunk >= 1):
+        raise ValueError(f"the kernel takes P ≤ {MAX_P}, N ≤ {MAX_N} and "
+                         f"chunk ≥ 1; got P={P}, N={N}, chunk={chunk}")
+    y = torch.empty((Bt, S, H, P), dtype=x.dtype, device=dev)
+    h = torch.empty((Bt, H, N, P), dtype=torch.float32, device=dev)
+    if Bt == 0 or H == 0:
+        return y, h
+    if S == 0:
+        return y, h.zero_()
+    lib = library()
+    A = A.contiguous()
+    strides = (ctypes.c_longlong * 13)(*x.stride(), *dt.stride(),
+                                       *B.stride(), *C.stride())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ssd_scan_launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                                 B.data_ptr(), C.data_ptr(),
+                                 DTYPE_CODES[x.dtype], y.data_ptr(),
+                                 h.data_ptr(), Bt, S, H, P, N, chunk,
+                                 strides, stream)
+    if rc != 0:
+        smem = lib.ssd_scan_smem_bytes(N, P, chunk)
+        raise RuntimeError(f"ssd_scan launch failed: CUDA error {rc} "
+                           f"(shared memory {smem} bytes, chunk {chunk})")
+    ssd_scan.launches += 1
+    return y, h
+
+
+ssd_scan.launches = 0
+ssd_scan.plain = ref.ssd_scan_ragged

@@ -1,0 +1,44 @@
+"""Decode-cache specifications per (arch × shape), as ``repro.models.io``
+(``cache_specs`` / ``zero_cache``) for the ``ssm`` family; the other
+families raise ``NotImplementedError`` until they are ported."""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.config.base import ModelConfig, ShapeConfig
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of one cache tensor (``jax.ShapeDtypeStruct``'s
+    counterpart)."""
+
+    shape: tuple
+    dtype: torch.dtype
+
+
+def act_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Specs of the decode cache at ``seq_len`` capacity: the stacked
+    per-layer conv window and SSD state (neither grows with seq_len)."""
+    if cfg.family != "ssm":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not yet ported: ROADMAP Queue 1 "
+            "step 5 (the other LM families)")
+    B, Lr = shape.global_batch, cfg.num_layers
+    conv_ch = cfg.d_inner + 2 * cfg.ssm_state
+    return {
+        "conv": TensorSpec((Lr, B, cfg.ssm_conv_width - 1, conv_ch),
+                           act_dtype(cfg)),
+        "ssm": TensorSpec((Lr, B, cfg.ssm_nheads, cfg.ssm_state,
+                           cfg.ssm_headdim), torch.float32),
+    }
+
+
+def zero_cache(cfg: ModelConfig, shape: ShapeConfig, *, device) -> dict:
+    return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
+            for k, s in cache_specs(cfg, shape).items()}

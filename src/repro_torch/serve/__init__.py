@@ -1,1 +1,2 @@
-"""Serving telemetry of the port (the engines wait for a later slice)."""
+"""Serving of the port: the LM engine (``engine``) and the solver
+telemetry (``metrics``); the solver engines wait for a later slice."""

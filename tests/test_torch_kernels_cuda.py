@@ -6,16 +6,21 @@ the JAX package, so it runs on a machine with only PyTorch:
 
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Both kernels only move data, so they must equal their plain versions
-bit for bit.
+``gather_rows`` and ``scatter_rows`` only move data, so they must equal
+their plain versions bit for bit.  ``ssd_scan`` sums in another order
+than its plain version: y within 1e-4 × max |y| and h within 1e-4 ×
+max |h| in fp32; in bf16, y within 2 bf16 ulps of each element plus
+that fp32 bound (both round an fp32 sum that differs in the last bits).
+Two launches on the same inputs give the same bits.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import flexa_prox
+from repro_torch.kernels import build, flexa_prox
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssd_scan as tssd
 
 #: (n_rows, k_active, capacity, C, dtype): K=1, all −1, C ∈ {1, 37, 128,
 #: 300, 4999, 5000}, N ≠ K, bf16/fp16.
@@ -83,15 +88,21 @@ def test_cuda_kernels_equal_plain_versions(cuda, n_rows, k, cap, C, dtype):
 def test_cuda_call_with_failed_build_raises(cuda, monkeypatch, tmp_path):
     """No fallback: when the kernel cannot be built a CUDA call raises."""
     monkeypatch.setattr(flexa_prox, "_lib", None)
-    monkeypatch.setattr(flexa_prox, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(tssd, "_lib", None)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
 
     def no_nvcc():
         raise RuntimeError("nvcc not found")
 
-    monkeypatch.setattr(flexa_prox, "find_nvcc", no_nvcc)
+    monkeypatch.setattr(build, "find_nvcc", no_nvcc)
     with pytest.raises(RuntimeError):
         tops.gather_blocks(torch.ones((4, 2), device=cuda),
                            np.zeros(2, np.int32))
+    x = torch.ones((1, 8, 1, 4), device=cuda)
+    with pytest.raises(RuntimeError):
+        tops.ssd_scan(x, torch.ones((1, 8, 1), device=cuda),
+                      -torch.ones(1, device=cuda), x[:, :, 0], x[:, :, 0],
+                      chunk=4)
 
 
 @pytest.mark.cuda
@@ -128,3 +139,122 @@ def test_problem_on_the_card_is_not_moved_again(cuda):
 
     p = nesterov_instance(m=20, n=50, nnz_frac=0.1, device="cuda")
     assert problem_on(p, "cuda") is p
+
+
+# ------------------------------------------------------------------ #
+# ssd_scan                                                           #
+# ------------------------------------------------------------------ #
+#: (Bt, S, H, P, N, chunk): the sweep of tests/test_kernels.py, the
+#: reduced mamba2 config, full mamba2-1.3b width (one and several
+#: chunks, ragged S), odd widths.
+SSD_CASES = [
+    (1, 32, 2, 8, 8, 8),
+    (2, 64, 3, 16, 8, 16),
+    (1, 48, 1, 8, 16, 16),
+    (1, 37, 2, 4, 6, 8),
+    (1, 256, 64, 64, 128, 256),
+    (2, 1024, 64, 64, 128, 256),
+    (1, 600, 64, 64, 128, 256),
+    (1, 200, 5, 48, 100, 96),
+]
+
+
+def ssd_inputs(Bt, S, H, P, N, dtype, seed, device, strided=False):
+    """x, B and C (as views of one xBC buffer when ``strided``), dt and
+    A, the mixer's ranges: dt in (0.001, 0.3), A in [−16, −1]."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    xBC = torch.randn((Bt, S, H * P + 2 * N), generator=g)
+    dt = torch.rand((Bt, S, H), generator=g) * 0.3 + 1e-3
+    A = -torch.linspace(1.0, 16.0, H)
+    xBC = xBC.to(device=device, dtype=dtype)
+    x = xBC[..., :H * P].reshape(Bt, S, H, P)
+    B, C = xBC[..., H * P: H * P + N], xBC[..., H * P + N:]
+    if not strided:
+        x, B, C = x.contiguous(), B.contiguous(), C.contiguous()
+    return x, dt.to(device), A.to(device), B, C
+
+
+def assert_ssd_close(got, want):
+    (y, h), (y0, h0) = got, want
+    assert torch.isfinite(y.float()).all() and torch.isfinite(h).all()
+    assert y.dtype == y0.dtype and y.shape == y0.shape
+    yf, y0f = y.float(), y0.float()
+    bound = 1e-4 * float(y0f.abs().max())
+    if y.dtype == torch.bfloat16:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            y0f.abs().clamp_min(2.0 ** -126))) - 7)
+        assert ((yf - y0f).abs() <= 2 * ulp + bound).all()
+    else:
+        assert float((yf - y0f).abs().max()) <= bound
+    assert float((h - h0).abs().max()) <= 1e-4 * float(h0.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES, ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("strided", [False, True])
+def test_ssd_scan_kernel_matches_plain_version(cuda, case, dtype, strided):
+    Bt, S, H, P, N, chunk = case
+    args = ssd_inputs(Bt, S, H, P, N, getattr(torch, dtype), seed=S + H,
+                      device=cuda, strided=strided)
+    n0 = tssd.ssd_scan.launches
+    got = tops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert tssd.ssd_scan.launches == n0 + 1
+    assert_ssd_close(got, tssd.ssd_scan.plain(*args, chunk=chunk))
+    again = tops.ssd_scan(*args, chunk=chunk)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_kernel_is_finite_where_the_decay_overflows(cuda, dtype):
+    """A = −16, dt = 0.1 at chunk 256: exp(s_t − s_u) for u > t would
+    overflow; the kernel never forms it."""
+    x, _, _, B, C = ssd_inputs(1, 512, 2, 64, 128, getattr(torch, dtype),
+                               seed=3, device=cuda)
+    dt = torch.full((1, 512, 2), 0.1, device=cuda)
+    A = torch.tensor([-1.0, -16.0], device=cuda)
+    got = tops.ssd_scan(x, dt, A, B, C, chunk=256)
+    assert_ssd_close(got, tssd.ssd_scan.plain(x, dt, A, B, C, chunk=256))
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_refuses_what_it_cannot_hold(cuda):
+    x, dt, A, B, C = ssd_inputs(1, 16, 1, 80, 8, torch.float32, seed=0,
+                                device=cuda)
+    with pytest.raises(ValueError):
+        tssd.ssd_scan(x, dt, A, B, C, chunk=8)           # P > 64
+    x, dt, A, B, C = ssd_inputs(1, 16, 1, 8, 8, torch.float32, seed=0,
+                                device=cuda)
+    with pytest.raises(RuntimeError):                    # shared memory
+        tssd.ssd_scan(x, dt, A, B, C, chunk=1 << 16)
+
+
+@pytest.mark.cuda
+def test_reduced_mamba2_serves_on_the_card_through_the_kernel(cuda):
+    """The reduced model on the card (fp32) launches ssd_scan once per
+    layer in prefill and agrees with the same model on the CPU."""
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_reduced("mamba2-1.3b").replace(dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    cpu = T.init_params(cfg, generator=gen, device="cpu")
+    card = T.Mamba2LM(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)).astype(np.int32)
+    n0 = tssd.ssd_scan.launches
+    lg, cache = T.prefill(cfg, card, {"tokens": prompts})
+    assert tssd.ssd_scan.launches == n0 + cfg.num_layers
+    lg0, cache0 = T.prefill(cfg, cpu, {"tokens": prompts})
+    np.testing.assert_allclose(lg.cpu().numpy(), lg0.numpy(), atol=1e-4)
+    np.testing.assert_allclose(cache["ssm"].cpu().numpy(),
+                               cache0["ssm"].numpy(), atol=1e-4)
+    res = ServeEngine(cfg, card, max_len=48, device=cuda).generate(
+        prompts, max_new_tokens=4)
+    res0 = ServeEngine(cfg, cpu, max_len=48, device="cpu").generate(
+        prompts, max_new_tokens=4)
+    np.testing.assert_array_equal(res.tokens, res0.tokens)
