@@ -46,11 +46,33 @@ each failing the run when its check fails:
                printed (a top-2 margin below bf16 rounding can flip), and
                the same weights in fp32 must give each token within 1e-4
                of the max logit.
+8. train    — slice 3's main path: full-width stablelm-3b (32 layers,
+               random weights from a seeded generator) through
+               ``TrainLoop.run``, FLEXA with the default settings, bf16
+               activations, batch 2 × 4096 (train_4k's sequence, the
+               batch cut from 256 to 2), 6 steps: ``best_response``
+               launched once per parameter tensor per step (291), by
+               counter and by profiler; every loss finite; per-step ms,
+               tokens/s, peak memory, the device busy share of a profiled
+               step.  Before it, on step 1's x and gradients, every
+               tensor's kernel z equals its plain version bit for bit and
+               e2 agrees within 1e-5 relative.
+9. descent  — reduced stablelm-3b on the card, 30 FLEXA steps at batch
+               4 × 64: the mean of the last 5 losses is below the mean of
+               the first 5 (the reference's own check,
+               ``tests/test_train_serve.py:16-26``).
+
+The ``kernels`` phase also sweeps ``best_response`` against its plain
+version: sizes 1, 1000, (2560, 2560), (2560, 6912), (50304, 2560) and a
+view one element into its storage; scalar and dense d; c = 0 and 1e-3;
+fp32 and bf16 x and g.  z must equal the plain z bit for bit, e2 agree
+within 1e-5 relative, and a second launch give the same bits.
 
 Then a ``{"kernels": [...]}`` line (device time, plain time, library
 time and bound of each kernel at its path's shapes), the card's name and
 power limit, and, last, the device line.
 """
+import contextlib
 import json
 import math
 import subprocess
@@ -75,15 +97,24 @@ FP32_OPS_PER_S = 66.9e12            # H100 SXM, CUDA cores, no tensor cores
 TF32_OPS_PER_S = 495e12             # tensor cores, beside it for reference
 REPLACES = {"gather_rows": "src/repro/kernels/flexa_prox.py:278",
             "scatter_rows": "src/repro/kernels/flexa_prox.py:308",
-            "ssd_scan": "src/repro/kernels/ssd_scan.py:83"}
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:83",
+            "best_response": "src/repro/kernels/flexa_prox.py:55"}
 SOURCES = {"gather_rows": "src/repro_torch/kernels/csrc/compact_rows.cu",
            "scatter_rows": "src/repro_torch/kernels/csrc/compact_rows.cu",
-           "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu"}
+           "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "best_response": "src/repro_torch/kernels/csrc/flexa_prox.cu"}
 #: Device-kernel names (substrings of the profiler's records) per wrapper.
 KERNEL_NAMES = {"gather_rows": ("gather_wide", "gather_narrow"),
                 "scatter_rows": ("scatter_narrow",),
-                "ssd_scan": ("ssd_scan_chunked",)}
+                "ssd_scan": ("ssd_scan_chunked",),
+                "best_response": ("flexa_best_response_kernel",)}
 SERVE = dict(arch="mamba2-1.3b", batch=4, prompt=4096, new=32, seed=0)
+TRAIN = dict(arch="stablelm-3b", batch=2, seq=4096, steps=6)
+DESCENT = dict(arch="stablelm-3b", batch=4, seq=64, steps=30)
+#: Shapes of the best_response sweep: 1, ragged 1000, the layer tensors
+#: of stablelm-3b (attn 2560², mlp 2560 × 6912) and its lm_head.
+BR_SHAPES = [(1,), (1000,), (2560, 2560), (2560, 6912), (50304, 2560)]
+BR_MISALIGNED = (1_000_001,)       # a view one element into its storage
 #: (Bt, S, H, P, N, chunk) of the ssd_scan sweep: reduced, full width.
 SSD_REDUCED = (2, 64, 3, 16, 8, 16)
 SSD_FULL = [(1, 256, 64, 64, 128, 256), (4, 4096, 64, 64, 128, 256),
@@ -159,9 +190,62 @@ def device_kernels(torch, prof, names=KERNEL_NAMES):
     return out, busy
 
 
+def top_kernels(torch, prof, n=12):
+    """The ``n`` device kernels with the most summed time in a profile:
+    [name (first 70 characters), launches, ms]."""
+    acc = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        rec = acc.setdefault(e.name()[:70], [0, 0.0])
+        rec[0] += 1
+        rec[1] += e.duration_ns() / 1e6
+    top = sorted(acc.items(), key=lambda kv: -kv[1][1])[:n]
+    return [[k, c, round(ms, 3)] for k, (c, ms) in top]
+
+
+#: Idle seconds at the start of a profiled window, and the least at its
+#: end.  The profiler keeps a device record only if its timestamps, mapped
+#: onto the host clock, fall inside the window, and on the H100 that
+#: mapping errs either way, by more the longer the window.  A window that
+#: closed right after a training step lost the records of the step's end:
+#: its optimizer, every ``best_response`` in it.  The margins keep the
+#: work's records inside the window; the train phase prints how far
+#: inside (``profiled_step_edges_ms``).
+PROFILE_HEAD_S = 1.0
+PROFILE_TAIL_FRAC = 0.2            # of the work's time, if more than HEAD
+
+
+@contextlib.contextmanager
 def profiled(torch):
+    """``torch.profiler`` over CUDA activity around the body, the device
+    idle for ``PROFILE_HEAD_S`` before it and for the larger of that and
+    ``PROFILE_TAIL_FRAC`` of its time after it.  Sets ``prof.work_ns``
+    to the host's (start, end) of the body, end after a synchronize, on
+    the clock of the profiler's records."""
     from torch.profiler import ProfilerActivity, profile
-    return profile(activities=[ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_HEAD_S)
+        t0 = time.time_ns()
+        yield prof
+        torch.cuda.synchronize()
+        t1 = time.time_ns()
+        prof.work_ns = (t0, t1)
+        time.sleep(max(PROFILE_HEAD_S, PROFILE_TAIL_FRAC * (t1 - t0) / 1e9))
+
+
+def window_edges(torch, prof):
+    """[first device record's start − the body's start, the body's end −
+    the last device record's end] in ms, and the number of device records:
+    how far the profile's records sit inside the profiled work."""
+    ev = [e for e in prof.profiler.kineto_results.events()
+          if e.device_type() == torch.autograd.DeviceType.CUDA]
+    if not ev:
+        return [None, None], 0
+    t0, t1 = prof.work_ns
+    return [(min(e.start_ns() for e in ev) - t0) / 1e6,
+            (t1 - max(e.end_ns() for e in ev)) / 1e6], len(ev)
 
 
 def phase_setup(torch, build, fp, ssd):
@@ -176,6 +260,7 @@ def phase_setup(torch, build, fp, ssd):
     build.build_all(verbose=True)
     build_wall = time.perf_counter() - t
     fp.library()
+    fp.br_library()
     ssd.library()
     say("setup", card=card, torch=torch.__version__,
         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
@@ -328,9 +413,65 @@ def phase_kernels(torch, fp, ssd, dev):
     torch.cuda.empty_cache()
     ssd_err, n_ssd = ssd_sweep(torch, ssd, dev)
     err["ssd_scan"] = max(e[0] for e in ssd_err.values())
+    br_z_err, br_e2_rel, n_br = br_sweep(torch, fp, dev)
+    err["best_response"] = br_z_err
     say("kernels", max_abs_err=err, gather_ms=times, ssd_scan_cases=n_ssd,
-        ssd_scan_max_abs_err_y_h=ssd_err)
+        ssd_scan_max_abs_err_y_h=ssd_err, best_response_cases=n_br,
+        best_response_max_e2_rel_err=br_e2_rel)
     return err
+
+
+def br_inputs(torch, shape, dtype, dense, seed, dev, offset=0):
+    """x, g (bf16 or fp32; views ``offset`` elements into their storage)
+    and d (0-d τ = 1.7, or dense in [0.5, 2)) of a best_response call."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = math.prod(shape)
+    x = torch.randn(n + offset, generator=gen, device=dev).to(dtype)
+    g = (0.1 * torch.randn(n + offset, generator=gen, device=dev)).to(dtype)
+    x, g = x[offset:].view(shape), g[offset:].view(shape)
+    d = (torch.rand(shape, generator=gen, device=dev) * 1.5 + 0.5) if dense \
+        else torch.tensor(1.7, device=dev)
+    return x, g, d
+
+
+def br_compare(torch, fp, args, c, what, kernel=None):
+    """Kernel (``kernel``, default the wrapper itself) vs plain version on
+    ``args``: z bitwise, e2 within 1e-5 relative, a second launch bitwise.
+    Returns (max |Δz|, e2 rel err, kernel e2, plain e2)."""
+    kernel = kernel or fp.best_response
+    z, e2 = kernel(*args, c)
+    z2, e22 = kernel(*args, c)
+    z0, e0 = fp.best_response.plain(*args, c)
+    dz = float((z - z0).abs().max())
+    e2, e0 = float(e2), float(e0)
+    rel = abs(e2 - e0) / max(e0, 1e-30)
+    check(torch.equal(z, z0), f"best_response {what}: z differs from its "
+          f"plain version (max |dz| {dz})")
+    check(rel <= 1e-5, f"best_response {what}: e2 {e2} vs plain {e0} "
+          f"(rel {rel})")
+    check(torch.equal(z2, z) and float(e22) == e2,
+          f"best_response {what}: a second launch gave other bits")
+    return dz, rel, e2, e0
+
+
+def br_sweep(torch, fp, dev):
+    cases = [(shape, 0) for shape in BR_SHAPES] + [(BR_MISALIGNED, 1)]
+    dz_max, rel_max, n = 0.0, 0.0, 0
+    for i, (shape, offset) in enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            for dense in (False, True):
+                args = br_inputs(torch, shape, dtype, dense, seed=i, dev=dev,
+                                 offset=offset)
+                for c in (0.0, 1e-3):
+                    dz, rel, _, _ = br_compare(
+                        torch, fp, args, c, f"{shape}+{offset} {dtype} "
+                        f"dense={dense} c={c}")
+                    dz_max, rel_max, n = max(dz_max, dz), max(rel_max, rel), \
+                        n + 1
+                del args
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return dz_max, rel_max, n
 
 
 def phase_goldens(torch, dev):
@@ -644,6 +785,163 @@ def phase_serve(torch, ssd, dev):
     return launches
 
 
+def step1_check(torch, fp, kops, T, loop, cfg):
+    """Step 1's best responses through ``br_compare`` (kernel against plain
+    version, and a second launch bitwise): the gradients of the first batch
+    at the initial weights, every tensor of every leaf with the optimizer's
+    τᵢ and c.  Returns (tensors checked,
+    max e2 rel err over tensors, max e2 rel err over leaves)."""
+    from repro_torch.core.optimizer import _l1_mask
+
+    model, opt, _ = loop.init_state()
+    loss, _ = T.loss_fn(cfg, model, loop.batch(0), remat=loop.tcfg.remat)
+    loss.backward()
+    loss = loss.detach()
+    check(math.isfinite(float(loss)), f"step-1 loss {float(loss)}")
+    n, rel_t, rel_leaf = 0, 0.0, 0.0
+    with torch.no_grad():
+        for i, leaf in enumerate(T.param_leaves(cfg, model)):
+            c = loop.tcfg.flexa_l1 if (loop.tcfg.flexa_l1 > 0
+                                       and _l1_mask(leaf.path)) else 0.0
+            e_k = e_p = 0.0
+            for j, x in enumerate(leaf.tensors):
+                _, r, e2, e0 = br_compare(
+                    torch, fp, (x, x.grad, opt.tau[i]), c,
+                    f"step 1, {'/'.join(leaf.path)}[{j}]",
+                    kernel=kops.flexa_best_response)
+                e_k, e_p, n, rel_t = e_k + e2, e_p + e0, n + 1, max(rel_t, r)
+            rel_leaf = max(rel_leaf, abs(e_k - e_p) / max(e_p, 1e-30))
+    del model, opt, loss
+    torch.cuda.empty_cache()
+    return n, rel_t, rel_leaf
+
+
+def phase_train(torch, fp, dev):
+    """Slice 3's main path: full-width stablelm-3b through
+    ``TrainLoop.run`` (FLEXA defaults, bf16 activations, batch 2 × 4096,
+    6 steps), then one more step under the profiler."""
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import transformer as T
+    from repro_torch.train.loop import TrainLoop
+
+    cfg = get_config(TRAIN["arch"])
+    nb, seq, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    tcfg = TrainConfig(steps=steps, log_every=1)
+    loop = TrainLoop(cfg, tcfg, batch=nb, seq_len=seq, device=dev)
+    t = time.perf_counter()
+    n_checked, rel_t, rel_leaf = step1_check(torch, fp, kops, T, loop, cfg)
+    check_s = time.perf_counter() - t
+    per_step = cfg.num_layers * 9 + 3
+    check(n_checked == per_step, f"step-1 check saw {n_checked} tensors")
+
+    # the main path: counters to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    for k in (fp.best_response, fp.gather_rows, fp.scatter_rows):
+        k.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model, opt = loop.run()
+    wall = time.perf_counter() - t
+    launches = fp.best_response.launches
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in loop.metrics_log]
+    step_s = [m["time"] for m in loop.metrics_log]
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+          f"losses {losses}")
+    check(launches == steps * per_step, f"best_response launched "
+          f"{launches} times in {steps} steps, want {steps * per_step}")
+
+    # one more step under the profiler: launches and device time
+    torch.cuda.synchronize()
+    with profiled(torch) as prof:
+        t = time.perf_counter()
+        _, opt, _, m = loop.step_fn(model, opt, None, loop.batch(steps))
+        check(math.isfinite(float(m["loss"])), "profiled step: loss")
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t
+    prof_launches = fp.best_response.launches - launches
+    per_kernel, busy = device_kernels(torch, prof, {
+        "best_response": KERNEL_NAMES["best_response"]})
+    top = top_kernels(torch, prof)
+    edges, records = window_edges(torch, prof)
+    del prof
+    # one more step split by hand: forward, backward, optimizer
+    split = {}
+    leaves = T.param_leaves(cfg, model)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss, _ = T.loss_fn(cfg, model, loop.batch(steps + 1), remat=True)
+    torch.cuda.synchronize()
+    split["forward_ms"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    split["backward_ms"] = (time.perf_counter() - t) * 1e3
+    grads = [[x.grad for x in leaf.tensors] for leaf in leaves]
+    model.zero_grad(set_to_none=True)
+    t = time.perf_counter()
+    _, opt, _ = loop.opt_update(grads, opt, leaves, loss.detach())
+    torch.cuda.synchronize()
+    split["optimizer_ms"] = (time.perf_counter() - t) * 1e3
+    del grads, loss
+    check(per_kernel["best_response"][0] == prof_launches == per_step,
+          f"best_response launches in the profiled step: profiler "
+          f"{per_kernel['best_response'][0]}, counter {prof_launches}, "
+          f"want {per_step} ({records} device records; first and last "
+          f"{edges} ms inside the step)")
+    steady = step_s[1:]
+    say("train", arch=cfg.name, layers=cfg.num_layers, batch=nb, seq=seq,
+        dtype=cfg.dtype, optimizer=tcfg.optimizer, steps=steps,
+        params=sum(p.numel() for p in model.parameters()),
+        losses=losses, step_ms=[round(v * 1e3, 3) for v in step_s],
+        wall_s=round(wall, 3),
+        tokens_per_s=round(nb * seq * len(steady) / sum(steady), 1),
+        peak_memory_gib=round(peak / 2 ** 30, 3),
+        launches={"best_response": launches,
+                  "gather_rows": fp.gather_rows.launches,
+                  "scatter_rows": fp.scatter_rows.launches},
+        launches_per_step=per_step,
+        profiled_step_ms=round(prof_s * 1e3, 3),
+        best_response_device_ms_per_step=round(
+            per_kernel["best_response"][1], 4),
+        best_response_profiler_launches=per_kernel["best_response"][0],
+        device_busy_ms=round(busy[1], 3),
+        device_busy_share=busy[1] / (prof_s * 1e3),
+        profiled_step_device_records=records,
+        profiled_step_edges_ms=edges,
+        top_device_kernels=top,
+        split_step_ms={k: round(v, 3) for k, v in split.items()},
+        sel_frac=float(m["flexa/sel_frac"]),
+        tau_mean=float(m["flexa/tau_mean"]),
+        step1_tensors_checked=n_checked, step1_e2_max_rel_err=rel_t,
+        step1_leaf_e2_max_rel_err=rel_leaf, step1_check_s=round(check_s, 2))
+    del model, opt, loop
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_descent(torch, dev):
+    """The reference's descent check at reduced size, on the card."""
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.train.loop import TrainLoop
+
+    loop = TrainLoop(get_reduced(DESCENT["arch"]),
+                     TrainConfig(steps=DESCENT["steps"], log_every=1000),
+                     batch=DESCENT["batch"], seq_len=DESCENT["seq"],
+                     device=dev)
+    loop.run()
+    losses = [m["loss"] for m in loop.metrics_log]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(all(math.isfinite(v) for v in losses) and last < first,
+          f"reduced stablelm-3b did not descend: {losses}")
+    say("descent", arch=DESCENT["arch"] + " (reduced)", steps=len(losses),
+        mean_first_5=first, mean_last_5=last,
+        losses=[round(v, 4) for v in losses])
+
+
 def greedy_gaps(torch, T, cfg, model, prompts, tokens, dev):
     """For each of the first 4 engine tokens, the largest gap (over the
     batch) between a full forward's max logit and the token's logit, the
@@ -676,6 +974,64 @@ def ssd_work(shape, itemsize):
     nbytes = (2 * Bt * S * H * P * itemsize + 2 * Bt * S * N * itemsize
               + Bt * S * H * 4 + H * 4 + Bt * H * N * P * 4)
     return 2 * fma, nbytes
+
+
+def br_row(torch, fp, launches, err, dev):
+    """best_response at the train path's shapes: stablelm-3b's lm_head
+    (50304, 2560) and its largest layer tensor, mlp.w1 (2560, 6912), fp32
+    x and g with a 0-d τ and c = 0 as the default optimizer calls it;
+    and the 291 calls of one step (every parameter tensor of the model,
+    shapes only).  Times from CUDA events around back-to-back eager
+    calls; bound: 12 bytes per element (x, g read, z written) over HBM."""
+    timed = {}
+    for key, shape in (("lm_head", (50304, 2560)), ("mlp.w1", (2560, 6912))):
+        x, g, d = br_inputs(torch, shape, torch.float32, False, 31, dev)
+        timed[key] = {
+            "ms": cuda_ms(torch, lambda: fp.best_response(x, g, d, 0.0)),
+            "plain_ms": cuda_ms(torch, lambda: fp.best_response.plain(
+                x, g, d, 0.0), reps=5),
+            "bound_ms": bytes_ms(12 * x.numel())}
+        del x, g, d
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(TRAIN["arch"])
+    shapes = [tuple(p.shape) for p in
+              T.DenseLM(cfg, device="meta").parameters()]
+    n = sum(math.prod(sh) for sh in shapes)
+    gen = torch.Generator(device=dev).manual_seed(32)
+    pool_x = torch.randn(n, generator=gen, device=dev)
+    pool_g = 0.01 * torch.randn(n, generator=gen, device=dev)
+    d = torch.tensor(1.0, device=dev)
+    views, o = [], 0
+    for sh in shapes:
+        k = math.prod(sh)
+        views.append((pool_x[o:o + k].view(sh), pool_g[o:o + k].view(sh)))
+        o += k
+
+    def step(fn):
+        for x, g in views:
+            fn(x, g, d, 0.0)
+    timed["step"] = {
+        "tensors": len(shapes), "elements": n,
+        "ms": cuda_ms(torch, lambda: step(fp.best_response), reps=5),
+        "plain_ms": cuda_ms(torch, lambda: step(fp.best_response.plain),
+                            reps=2),
+        "bound_ms": bytes_ms(12 * n)}
+    del pool_x, pool_g, views
+    torch.cuda.empty_cache()
+    t = timed["lm_head"]
+    return {"name": "best_response", "route": "cuda",
+            "source": SOURCES["best_response"],
+            "replaces": REPLACES["best_response"],
+            "launches": launches, "max_abs_err": err,
+            "ms": round(t["ms"], 5), "plain_ms": round(t["plain_ms"], 5),
+            "bound_ms": round(t["bound_ms"], 5), "bound_by": "bytes",
+            # no single PyTorch call computes z and e2 together
+            "library_ms": None,
+            "shape": "x, g (50304, 2560) fp32, 0-d d, c = 0 (lm_head)",
+            "timed": {k: {kk: (round(vv, 5) if isinstance(vv, float)
+                               else vv) for kk, vv in v.items()}
+                      for k, v in timed.items()}}
 
 
 def kernel_line(torch, fp, ssd, r, launches, serve_launches, err, dev):
@@ -725,6 +1081,8 @@ def kernel_line(torch, fp, ssd, r, launches, serve_launches, err, dev):
                      "eager_ms": round(t["eager_ms"], 5),
                      "shape": shape})
     rows.append(ssd_row(torch, ssd, serve_launches, err["ssd_scan"], dev))
+    rows.append(br_row(torch, fp, launches["best_response"],
+                       err["best_response"], dev))
     return rows
 
 
@@ -800,6 +1158,10 @@ def main() -> int:
         phase_compact_vs_dense(torch, dev)
         phase = "serve"
         serve_launches = phase_serve(torch, ssd, dev)
+        phase = "train"
+        launches["best_response"] = phase_train(torch, fp, dev)
+        phase = "descent"
+        phase_descent(torch, dev)
         phase = "kernel timing"
         rows = kernel_line(torch, fp, ssd, r, launches, serve_launches, err,
                            dev)

@@ -2,13 +2,15 @@
 
 The package mirrors ``repro`` (the JAX reference) module for module, e.g.
 ``repro_torch.core.flexa`` ↔ ``repro.core.flexa``, and never imports it
-or ``jax``.  This slice covers the solo Lasso solve and the screened,
+or ``jax``.  Ported so far: the solo Lasso solve and the screened,
 compacted λ-path behind :class:`repro_torch.client.FlexaClient`'s
-``inline`` backend, with the compaction gather/scatter as hand-written
-CUDA kernels (``repro_torch.kernels``).
+``inline`` backend; serving of the ``ssm`` LM family
+(``repro_torch.serve``); training of the ``dense`` LM family with FLEXA
+or AdamW (``repro_torch.train``).  Each TPU kernel on those paths is a
+hand-written CUDA kernel (``repro_torch.kernels``).
 
-Numerics: every tensor is fp32, and matrix products run at full fp32
-precision.  Importing the package sets
+Numerics: solver tensors are fp32, LM activations bf16 or fp32 over fp32
+master weights, and fp32 matrix products run at full fp32 precision.  Importing the package sets
 ``torch.backends.cuda.matmul.allow_tf32 = False`` and
 ``torch.backends.cudnn.allow_tf32 = False`` once, so a CUDA run computes
 what the CPU run computes up to summation order.

@@ -4,7 +4,9 @@
 :class:`ClientConfig` keeps the fields the ``inline`` backend reads plus
 ``device`` — where the client runs its work (``"cuda"`` by default).
 :class:`ModelConfig` and :class:`ShapeConfig` are the reference's LM
-architecture and workload-cell configs field for field.
+architecture and workload-cell configs field for field, and
+:class:`TrainConfig` its optimizer and training-loop settings field for
+field and default for default.
 """
 from __future__ import annotations
 
@@ -107,6 +109,10 @@ class ModelConfig:
     source: str = ""
 
     @property
+    def is_encoder_decoder(self) -> bool:
+        return self.family == "encdec"
+
+    @property
     def d_inner(self) -> int:
         """Mamba2 inner width."""
         return self.ssm_expand * self.d_model
@@ -118,6 +124,34 @@ class ModelConfig:
     def replace(self, **kw: Any) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def param_count(self, active_only: bool = False) -> int:
+        """The reference's parameter-count estimate (``6·N·D`` rooflines,
+        the training CLI's banner)."""
+        d, v = self.d_model, self.vocab_size
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        per_attn = d * (self.num_heads * self.head_dim) \
+            + 2 * d * (self.num_kv_heads * self.head_dim) \
+            + (self.num_heads * self.head_dim) * d
+        per_dense_mlp = 3 * d * self.d_ff
+        n = emb
+        if self.family in ("dense", "vlm"):
+            n += self.num_layers * (per_attn + per_dense_mlp)
+        elif self.family == "moe":
+            e = self.moe_top_k if active_only else self.num_experts
+            n += self.num_layers * (per_attn + e * 3 * d * self.d_ff)
+        elif self.family == "ssm":
+            din = self.d_inner
+            per = d * 2 * din + d * din + din * 2 * self.ssm_state + din
+            n += self.num_layers * per
+        elif self.family == "hybrid":
+            din = self.d_inner
+            per = d * 2 * din + d * din + din * 2 * self.ssm_state + din
+            n += self.num_layers * per + per_attn + per_dense_mlp
+        elif self.family == "encdec":
+            n += self.enc_layers * (per_attn + per_dense_mlp)
+            n += self.num_layers * (2 * per_attn + per_dense_mlp)
+        return n
+
 
 @dataclass(frozen=True)
 class ShapeConfig:
@@ -128,3 +162,48 @@ class ShapeConfig:
     kind: str
     seq_len: int
     global_batch: int
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer + training-loop settings (the reference's, field for
+    field).  ``pipeline``, ``pp_microbatches``, ``strategy`` and
+    ``microbatch`` are read by the reference's multi-device step builders
+    only; the port's :class:`~repro_torch.train.loop.TrainLoop` raises if
+    one of them is set away from its default."""
+
+    optimizer: str = "flexa"  # "flexa" | "adamw"
+    # --- FLEXA (Algorithm 1) ---
+    flexa_rho: float = 0.5          # greedy selection factor ρ ∈ (0, 1]
+    flexa_gamma0: float = 0.9       # γ⁰ for Eq. (4)
+    flexa_theta: float = 1e-5       # θ  for Eq. (4)
+    flexa_tau0: float = 1.0         # initial proximal weight τᵢ
+    flexa_l1: float = 0.0           # c in G(x)=c‖x‖₁ (0 ⇒ G≡0)
+    flexa_diag_q: bool = False      # diagonal Qᵢ curvature (beyond-paper)
+    flexa_tau_adapt: bool = True    # double/halve rule from §4
+    flexa_select: str = "greedy"    # "greedy" | "all" (full Jacobi)
+    # --- AdamW baseline ---
+    lr: float = 3e-4
+    betas: tuple = (0.9, 0.95)
+    weight_decay: float = 0.1
+    # --- loop ---
+    steps: int = 100
+    log_every: int = 10
+    seed: int = 0
+    microbatch: int = 0             # 0 ⇒ no gradient accumulation
+    remat: bool = True
+    # --- fault tolerance ---
+    ckpt_dir: str = ""
+    ckpt_every: int = 50
+    ckpt_keep: int = 3
+    ckpt_async: bool = True
+    resume: bool = True
+    # --- distributed optimization tricks ---
+    grad_compression: str = "none"  # "none" | "topk" | "int8"
+    grad_topk_frac: float = 0.1
+    pipeline: bool = False          # GPipe over the data axis (dense/vlm)
+    pp_microbatches: int = 16
+    strategy: str = "tp"            # "tp" | "zero3" (multi-device)
+
+    def replace(self, **kw: Any) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)

@@ -8,19 +8,19 @@ other id raises ``KeyError``.
 from __future__ import annotations
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.configs import mamba2_1p3b
+from repro_torch.configs import mamba2_1p3b, stablelm_3b, yi_6b
 
 _MODULES = {
     "mamba2-1.3b": mamba2_1p3b,
+    "yi-6b": yi_6b,
+    "stablelm-3b": stablelm_3b,
 }
 
 #: The reference's other architectures, by id → family.
 NOT_YET_PORTED = {
     "zamba2-1.2b": "hybrid",
     "phi3-medium-14b": "dense",
-    "yi-6b": "dense",
     "deepseek-67b": "dense",
-    "stablelm-3b": "dense",
     "moonshot-v1-16b-a3b": "moe",
     "qwen3-moe-30b-a3b": "moe",
     "seamless-m4t-large-v2": "encdec",
@@ -36,7 +36,7 @@ def _module(arch: str):
     if arch in NOT_YET_PORTED:
         raise NotImplementedError(
             f"arch {arch!r} (family {NOT_YET_PORTED[arch]!r}) is not yet "
-            "ported: ROADMAP Queue 1 step 5 (the other LM families)")
+            "ported: ROADMAP Queue 1 step 5b (the other LM families)")
     raise KeyError(f"unknown arch {arch!r}; available: {sorted(ARCHS)}")
 
 

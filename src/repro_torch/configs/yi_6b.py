@@ -1,0 +1,26 @@
+"""yi-6b — llama-architecture dense decoder with GQA.
+
+[arXiv:2403.04652; hf]  32L d_model=4096 32H (GQA kv=4) d_ff=11008
+vocab=64000.
+"""
+from repro_torch.config.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-6b",
+    family="dense",
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=4,
+    head_dim=128,
+    d_ff=11_008,
+    vocab_size=64_000,
+    source="[arXiv:2403.04652; hf]",
+)
+
+
+def reduced() -> ModelConfig:
+    return CONFIG.replace(
+        num_layers=3, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
+        d_ff=160, vocab_size=256,
+    )

@@ -39,6 +39,26 @@ def _on(device: torch.device, *tensors) -> None:
             raise ValueError(f"tensors on {t.device} and {device}")
 
 
+def flexa_best_response(x: torch.Tensor, g: torch.Tensor, d, c):
+    """z = soft(x − g/d, c/d) in fp32, e2 = Σ(z−x)².  Any-shape tensors.
+
+    ``d`` a scalar (float or 0-d tensor) or a tensor of x's shape; ``c`` a
+    host float.  On the card a float ``d`` is copied there first (the
+    optimizer passes τᵢ as a 0-d tensor already on the card, so it never
+    syncs), and x, g are made contiguous for the kernel.
+    """
+    _on(x.device, g)
+    if x.device.type == "cpu":
+        return ref.flexa_best_response_ref(x, g, d, c)
+    if x.device.type == "cuda":
+        if not isinstance(d, torch.Tensor):
+            d = torch.tensor(float(d), dtype=torch.float32, device=x.device)
+        _on(x.device, d)
+        return _fp.best_response(x.contiguous(), g.contiguous(),
+                                 d.contiguous(), float(c))
+    raise ValueError(f"no best_response kernel for device {x.device}")
+
+
 def gather_blocks(src: torch.Tensor, idx) -> torch.Tensor:
     """Row gather: out[k] = src[idx[k]] (−1 ⇒ zero row), fp32.  src (N, C)."""
     idx = _index(idx, src.shape[0], "idx", src.device)

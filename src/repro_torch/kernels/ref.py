@@ -1,5 +1,8 @@
 """Plain torch versions of the port's kernels (the semantic definitions).
 
+``flexa_best_response_ref`` is the contract of
+:func:`repro_torch.kernels.flexa_prox.best_response`: z bit for bit, e2
+up to summation order.
 ``gather_rows_ref`` / ``scatter_rows_ref`` are the contracts the CUDA
 kernels of :mod:`repro_torch.kernels.flexa_prox` meet bit for bit,
 written as the reference's ``repro.kernels.ref`` oracle is: an index
@@ -13,6 +16,31 @@ tensors on the CPU only.
 from __future__ import annotations
 
 import torch
+
+
+def flexa_best_response_ref(x: torch.Tensor, g: torch.Tensor, d, c
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Best response + squared error norm for one block tensor.
+
+    z  = prox_{(c/d)·‖·‖₁}(x − g/d)  = soft-threshold,
+    e2 = Σ (z − x)²   (the squared error bound Eᵢ²).
+
+    ``d`` is a positive scalar (a float or a 0-d tensor) or a tensor of
+    x's shape (the diag-Q case); ``c`` a scalar, 0 disabling the ℓ1 term.
+    Computed in fp32 whatever the input dtype.  Both quotients are true
+    divisions of fp32 values, as the reference's ``c / d`` with a weakly
+    typed ``c`` is: torch's ``float / tensor`` would multiply by a
+    reciprocal instead, which rounds differently.
+    """
+    f32 = torch.float32
+    xf = x.to(f32)
+    gf = g.to(f32)
+    d = torch.as_tensor(d, dtype=f32, device=x.device)
+    w = xf - gf / d
+    t = torch.as_tensor(c, dtype=f32, device=x.device) / d
+    z = torch.sign(w) * torch.clamp_min(torch.abs(w) - t, 0.0)
+    e2 = torch.sum((z - xf) ** 2)
+    return z, e2
 
 
 def gather_rows_ref(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -1,1 +1,2 @@
-"""LM stack of the port (``ssm`` family so far), as ``repro.models``."""
+"""LM stack of the port (the ``dense`` and ``ssm`` families so far), as
+``repro.models``."""

@@ -27,8 +27,9 @@ def cache_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     per-layer conv window and SSD state (neither grows with seq_len)."""
     if cfg.family != "ssm":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not yet ported: ROADMAP Queue 1 "
-            "step 5 (the other LM families)")
+            f"the decode cache of family {cfg.family!r} is not yet ported: "
+            "ROADMAP Queue 1 step 5a (dense serving) / 5b (the other "
+            "families)")
     B, Lr = shape.global_batch, cfg.num_layers
     conv_ch = cfg.d_inner + 2 * cfg.ssm_state
     return {

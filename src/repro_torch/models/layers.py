@@ -2,13 +2,15 @@
 
 Conventions, as in the reference: parameters are fp32 "master" tensors
 and compute casts them to the activation dtype; functions are
-shape-polymorphic over batch and sequence.  RoPE, ``swiglu`` and
-``cross_entropy`` arrive with the families and the training step that
-use them.
+shape-polymorphic over batch and sequence.  Serving casts through
+:func:`cast_param` (a cached copy, outside autograd); training casts
+with :func:`cast` at every use, which autograd sees.  M-RoPE arrives
+with the ``vlm`` family.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -18,6 +20,39 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * scale.to(torch.float32)
+    return out.to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+           w2: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP:  (silu(x·w1) ⊙ (x·w3)) · w2, weights cast to x's dtype."""
+    dt = x.dtype
+    h = F.silu(x @ cast(w1, dt)) * (x @ cast(w3, dt))
+    return h @ cast(w2, dt)
+
+
+# ------------------------------------------------------------------ #
+# Rotary position embeddings                                         #
+# ------------------------------------------------------------------ #
+def _rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=device) / half)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10_000.0) -> torch.Tensor:
+    """x: (B, H, S, D); positions: (B, S) int → rotated x (same dtype).
+
+    Rotate-half convention (llama-style): pairs (x[..., :D/2], x[..., D/2:]).
+    """
+    D = x.shape[-1]
+    freqs = _rope_freqs(D, theta, x.device)                  # (D/2,)
+    ang = positions.to(torch.float32)[:, None, :, None] * freqs
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    xf1 = x[..., : D // 2].to(torch.float32)
+    xf2 = x[..., D // 2:].to(torch.float32)
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
     return out.to(x.dtype)
 
 
@@ -40,6 +75,20 @@ def logits(x: torch.Tensor, table_or_head: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(torch.float32), head.transpose(0, 1))
 
 
+def cross_entropy(lg: torch.Tensor, labels: torch.Tensor, *,
+                  z_loss: float = 0.0) -> torch.Tensor:
+    """Mean token cross-entropy; lg fp32 (B, S, V); labels (B, S) int.
+
+    Optional z-loss (log²Z regularizer); 0 by default.
+    """
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, labels.to(torch.long)[..., None])[..., 0]
+    nll = lse - gold
+    if z_loss > 0:
+        nll = nll + z_loss * lse ** 2
+    return torch.mean(nll)
+
+
 def init_dense(shape, *, generator: torch.Generator, device,
                scale: float | None = None) -> torch.Tensor:
     """N(0, scale²) fp32 weights; scale defaults to fan_in^-½."""
@@ -47,6 +96,14 @@ def init_dense(shape, *, generator: torch.Generator, device,
         scale = shape[0] ** -0.5
     return torch.randn(shape, generator=generator, dtype=torch.float32,
                        device=device) * scale
+
+
+def cast(p: torch.Tensor, dtype) -> torch.Tensor:
+    """``p`` in ``dtype``, through autograd: the training forward's cast
+    of an fp32 master weight at each use, as the reference's
+    ``astype``.  (``cast_param`` keeps a detached copy, which would give
+    the weight no gradient.)"""
+    return p if p.dtype == dtype else p.to(dtype)
 
 
 def cast_param(module: nn.Module, name: str, dtype) -> torch.Tensor:

@@ -1,11 +1,16 @@
-"""The port's gather/scatter kernels against the JAX package's.
+"""The port's kernels (best response, gather/scatter) against the JAX
+package's.
 
 On the CPU the port dispatches to its plain torch versions
 (``repro_torch.kernels.ref``); those, and the dispatch
 ``repro_torch.kernels.ops``, must equal the reference's Pallas kernels
 run in interpret mode (``force="interpret"``) and its jnp oracles
 exactly: both functions only move data, so any difference is a bug, not
-rounding.  Inputs are made once with numpy and handed to both packages.
+rounding.  The best response's z is elementwise fp32 arithmetic in the
+same order in both packages, so it must be equal too; its e2 is a sum
+taken in another order, held within 1e-5 relative (the reference's own
+interpret and ref paths differ by ≈ 5e-7).  Inputs are made once with
+numpy and handed to both packages.
 
 ``tests/test_torch_kernels_cuda.py`` holds the CUDA kernels against the
 plain versions on the card.
@@ -154,3 +159,80 @@ def test_kernel_modules_import_without_nvcc():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+# ------------------------------------------------------------------ #
+# best_response                                                      #
+# ------------------------------------------------------------------ #
+#: (shape, dense d, c, x dtype): odd sizes (1, 1000, 37×53), a 2-D and a
+#: 3-D tensor, scalar and dense d, c = 0 and > 0, fp32 and bf16 x.
+BR_CASES = [
+    ((1,), False, 0.0, "float32"),
+    ((1000,), False, 0.0, "float32"),
+    ((1000,), False, 0.01, "float32"),
+    ((37, 53), True, 0.0, "float32"),
+    ((37, 53), True, 0.05, "float32"),
+    ((3, 64, 160), False, 1e-3, "float32"),
+    ((3, 64, 160), True, 1e-3, "bfloat16"),
+    ((517,), False, 0.02, "bfloat16"),
+]
+
+
+def _br_inputs(shape, dense, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape).astype(np.float32)
+    g = (0.1 * rng.standard_normal(shape)).astype(np.float32)
+    d = (rng.uniform(0.5, 2.0, shape) if dense else np.float32(1.7)
+         ).astype(np.float32)
+    jx, jg = (jnp.asarray(a).astype(dtype) for a in (x, g))
+    tx, tg = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in (x, g))
+    return (jx, jg, jnp.asarray(d)), (tx, tg, torch.from_numpy(np.array(d)))
+
+
+@pytest.mark.parametrize("shape,dense,c,dtype", BR_CASES)
+def test_best_response_matches_reference(shape, dense, c, dtype):
+    (jx, jg, jd), (tx, tg, td) = _br_inputs(shape, dense, dtype,
+                                            seed=sum(shape) + int(dense))
+    zi, ei = jops.flexa_best_response(jx, jg, jd, c, force="interpret")
+    zr, er = jops.flexa_best_response(jx, jg, jd, c, force="ref")
+    np.testing.assert_array_equal(np.asarray(zi), np.asarray(zr))
+    for z, e2 in (tref.flexa_best_response_ref(tx, tg, td, c),
+                  tops.flexa_best_response(tx, tg, td, c),
+                  tops.flexa_best_response(tx, tg, float(td) if not dense
+                                           else td, c)):
+        assert z.dtype == torch.float32 and z.shape == tx.shape
+        assert e2.dtype == torch.float32 and e2.dim() == 0
+        np.testing.assert_array_equal(z.numpy(), np.asarray(zi))
+        for want in (ei, er):
+            np.testing.assert_allclose(float(e2), float(want), rtol=1e-5)
+
+
+def test_best_response_divides_where_torch_would_multiply():
+    """c / d and g / d are true fp32 divisions, as the reference's; torch's
+    ``float / tensor`` (a reciprocal times c) differs in the last bit for
+    some d, and the plain version must not take that route."""
+    d = torch.linspace(0.3, 7.7, 4001)
+    t_true = torch.tensor(0.1) / d
+    assert not torch.equal(0.1 / d, t_true)          # the trap exists
+    x = torch.full((4001,), 0.5)
+    g = torch.zeros(4001)
+    z, _ = tref.flexa_best_response_ref(x, g, d, 0.1)
+    np.testing.assert_array_equal(z.numpy(), (x - t_true).numpy())
+
+
+def test_best_response_cpu_dispatch_never_touches_the_kernel():
+    before = flexa_prox.best_response.launches
+    tops.flexa_best_response(torch.ones(10), torch.ones(10), 2.0, 0.1)
+    assert flexa_prox.best_response.launches == before
+    assert flexa_prox._br_lib is None
+    assert flexa_prox.best_response.plain is tref.flexa_best_response_ref
+
+
+def test_best_response_grid_depends_on_numel_and_sms_only():
+    """The kernel's grid (and so e2's summation order) is fixed by numel
+    and the SM count: one block for small tensors, capped at 8 per SM."""
+    blocks = flexa_prox.best_response_blocks
+    assert blocks(1, 132) == 1 and blocks(2048, 132) == 1
+    assert blocks(2049, 132) == 2
+    assert blocks(2560 * 6912, 132) == 8 * 132
+    assert blocks(50304 * 2560, 132) == 8 * 132

@@ -11,7 +11,10 @@ their plain versions bit for bit.  ``ssd_scan`` sums in another order
 than its plain version: y within 1e-4 × max |y| and h within 1e-4 ×
 max |h| in fp32; in bf16, y within 2 bf16 ulps of each element plus
 that fp32 bound (both round an fp32 sum that differs in the last bits).
-Two launches on the same inputs give the same bits.
+Two launches on the same inputs give the same bits.  ``best_response``'s
+z is elementwise IEEE fp32 arithmetic in the plain version's order, so
+it equals the plain z bit for bit; its e2 sums in another order: within
+1e-5 relative.
 """
 import numpy as np
 import pytest
@@ -88,6 +91,7 @@ def test_cuda_kernels_equal_plain_versions(cuda, n_rows, k, cap, C, dtype):
 def test_cuda_call_with_failed_build_raises(cuda, monkeypatch, tmp_path):
     """No fallback: when the kernel cannot be built a CUDA call raises."""
     monkeypatch.setattr(flexa_prox, "_lib", None)
+    monkeypatch.setattr(flexa_prox, "_br_lib", None)
     monkeypatch.setattr(tssd, "_lib", None)
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
 
@@ -98,6 +102,9 @@ def test_cuda_call_with_failed_build_raises(cuda, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError):
         tops.gather_blocks(torch.ones((4, 2), device=cuda),
                            np.zeros(2, np.int32))
+    with pytest.raises(RuntimeError):
+        tops.flexa_best_response(torch.ones(8, device=cuda),
+                                 torch.ones(8, device=cuda), 1.0, 0.0)
     x = torch.ones((1, 8, 1, 4), device=cuda)
     with pytest.raises(RuntimeError):
         tops.ssd_scan(x, torch.ones((1, 8, 1), device=cuda),
@@ -258,3 +265,120 @@ def test_reduced_mamba2_serves_on_the_card_through_the_kernel(cuda):
     res0 = ServeEngine(cfg, cpu, max_len=48, device="cpu").generate(
         prompts, max_new_tokens=4)
     np.testing.assert_array_equal(res.tokens, res0.tokens)
+
+
+# ------------------------------------------------------------------ #
+# best_response                                                      #
+# ------------------------------------------------------------------ #
+#: Shapes of the sweep at small size: 1, ragged 1000, the layer tensors
+#: of the reduced dense configs, a 2560-wide row block.
+BR_SHAPES = [(1,), (1000,), (64, 160), (160, 64), (3, 2560), (2049, 7)]
+
+
+def br_inputs(shape, dtype, dense, seed, device, offset=0):
+    """x, g (as views at ``offset`` elements into their storage), d."""
+    g0 = torch.Generator(device="cpu").manual_seed(seed)
+    n = int(np.prod(shape))
+    x = torch.randn(n + offset, generator=g0)[offset:].view(shape)
+    g = 0.1 * torch.randn(n + offset, generator=g0)[offset:].view(shape)
+    d = (torch.rand(shape, generator=g0) * 1.5 + 0.5) if dense \
+        else torch.tensor(1.7)
+    x = x.to(dtype)
+    g = g.to(dtype)
+    # .to(device) copies into fresh, aligned storage: rebuild the offset
+    if offset:
+        xs = torch.empty(n + offset, dtype=dtype, device=device)
+        gs = torch.empty(n + offset, dtype=dtype, device=device)
+        xs[offset:] = x.reshape(-1).to(device)
+        gs[offset:] = g.reshape(-1).to(device)
+        return xs[offset:].view(shape), gs[offset:].view(shape), d.to(device)
+    return x.to(device), g.to(device), d.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BR_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("c", [0.0, 1e-3])
+def test_best_response_kernel_matches_plain_version(cuda, shape, dtype,
+                                                    dense, c):
+    x, g, d = br_inputs(shape, getattr(torch, dtype), dense,
+                        seed=len(shape) + int(dense), device=cuda)
+    n0 = flexa_prox.best_response.launches
+    z, e2 = tops.flexa_best_response(x, g, d, c)
+    torch.cuda.synchronize()
+    assert flexa_prox.best_response.launches == n0 + 1
+    z0, e0 = flexa_prox.best_response.plain(x, g, d, c)
+    assert z.dtype == torch.float32 and z.shape == x.shape and e2.dim() == 0
+    assert torch.equal(z, z0)
+    assert abs(float(e2) - float(e0)) <= 1e-5 * float(e0)
+    z2, e22 = tops.flexa_best_response(x, g, d, c)
+    assert torch.equal(z2, z) and torch.equal(e22, e2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_best_response_kernel_on_misaligned_views(cuda, dtype):
+    """A view one element into its storage is not 16-byte aligned: the
+    kernel takes its scalar loop and gives the same z."""
+    x, g, d = br_inputs((1001,), getattr(torch, dtype), False, seed=3,
+                        device=cuda, offset=1)
+    assert x.data_ptr() % 16 != 0
+    z, e2 = flexa_prox.best_response(x, g, d, 0.01)
+    z0, e0 = flexa_prox.best_response.plain(x, g, d, 0.01)
+    assert torch.equal(z, z0)
+    assert abs(float(e2) - float(e0)) <= 1e-5 * float(e0)
+
+
+@pytest.mark.cuda
+def test_best_response_kernel_refuses_what_it_cannot_take(cuda):
+    x = torch.ones(8, device=cuda)
+    d = torch.tensor(1.0, device=cuda)
+    bad = [
+        (x.cpu(), x, d, ValueError),                        # a CPU tensor
+        (x, x.cpu(), d, ValueError),
+        (x, x, d.cpu(), ValueError),
+        (x, x.to(torch.bfloat16), d, TypeError),            # mixed dtypes
+        (x.half(), x.half(), d, TypeError),                 # fp16 x, g
+        (x, x, d.double(), TypeError),                      # d not fp32
+        (x, torch.ones(9, device=cuda), d, ValueError),     # shapes
+        (x, x, torch.ones(9, device=cuda), ValueError),
+        (torch.ones((4, 4), device=cuda).t(), torch.ones(
+            (4, 4), device=cuda), d, ValueError),           # not contiguous
+    ]
+    for xx, gg, dd, err in bad:
+        with pytest.raises(err):
+            flexa_prox.best_response(xx, gg, dd, 0.0)
+    with pytest.raises(ValueError):                         # via dispatch
+        tops.flexa_best_response(x, x.cpu(), 1.0, 0.0)
+
+
+@pytest.mark.cuda
+def test_reduced_dense_training_step_on_the_card(cuda):
+    """One FLEXA step of reduced stablelm-3b (fp32) on the card launches
+    best_response once per port tensor (3 + 9 per layer) and agrees with
+    the same step on the CPU (within 1e-5: cuBLAS sums in another order)."""
+    from repro_torch.config.base import TrainConfig
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.train.loop import TrainLoop
+
+    cfg = get_reduced("stablelm-3b").replace(dtype="float32")
+    cpu = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                        device="cpu")
+    card = T.DenseLM(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    out = {}
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        loop = TrainLoop(cfg, TrainConfig(), batch=2, seq_len=32, device=dev)
+        opt = loop.opt_init(T.param_leaves(cfg, model))
+        n0 = flexa_prox.best_response.launches
+        _, _, _, m = loop.step_fn(model, opt, None, loop.batch(0))
+        launched = flexa_prox.best_response.launches - n0
+        assert launched == (3 + 9 * cfg.num_layers if dev == "cuda" else 0)
+        out[dev] = float(m["loss"])
+    assert abs(out["cuda"] - out["cpu"]) <= 1e-5 * abs(out["cpu"])
+    for (k, v), w in zip(cpu.state_dict().items(),
+                         card.state_dict().values()):
+        np.testing.assert_allclose(w.cpu().numpy(), v.numpy(), rtol=0,
+                                   atol=1e-5, err_msg=k)

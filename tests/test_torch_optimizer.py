@@ -1,0 +1,273 @@
+"""The port's FLEXA and AdamW LM optimizers against the JAX package's.
+
+* The reference's two-block quad problem (``tests/test_optimizer.py``)
+  stepped 50 times by both packages, from the same numpy start, each
+  side with its own autodiff: parameters within 1e-6 and the selection
+  mask equal at every step (fp32 elementwise arithmetic in the same
+  order; only the e2 sums differ in order), for the default rule, ℓ1,
+  diag-Q, τ-adapt and AdamW.
+* The port's leaf paths, shapes and per-leaf ℓ1 mask equal the
+  reference's on the full stablelm-3b tree (12 leaves; ``ln1``/``ln2``
+  get ℓ1, ``embed``/``final_norm`` do not).
+* The reference's behavioural tests, on the port alone.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.config.base import TrainConfig as JTrainConfig
+from repro.configs.registry import get_config as jget_config
+from repro.core import optimizer as JO
+from repro.kernels import ops as JK
+from repro.models import transformer as JT
+from repro_torch.config.base import TrainConfig
+from repro_torch.configs.registry import get_config
+from repro_torch.core import optimizer as O
+from repro_torch.kernels import ops as TK
+from repro_torch.models import transformer as T
+
+
+def _start():
+    rng = np.random.default_rng(0)
+    return {"a": rng.standard_normal((8, 8)).astype(np.float32),
+            "b": rng.standard_normal((16,)).astype(np.float32)}
+
+
+def _jloss(p):
+    return 2.0 * jnp.sum(p["a"] ** 2) + 0.5 * jnp.sum(p["b"] ** 2)
+
+
+def _port_problem():
+    start = _start()
+    leaves = [T.Leaf((k,), [torch.tensor(start[k], requires_grad=True)],
+                     False) for k in ("a", "b")]
+
+    def loss_and_grads():
+        a, b = leaves[0].tensors[0], leaves[1].tensors[0]
+        for t in (a, b):
+            t.grad = None
+        loss = 2.0 * torch.sum(a ** 2) + 0.5 * torch.sum(b ** 2)
+        loss.backward()
+        return loss.detach(), [[a.grad], [b.grad]]
+    return leaves, loss_and_grads
+
+
+def _port_values(leaves):
+    return {leaf.path[0]: leaf.tensors[0].detach().numpy().copy()
+            for leaf in leaves}
+
+
+VARIANTS = {
+    "flexa": dict(optimizer="flexa", flexa_tau0=8.0, flexa_theta=1e-3),
+    "greedy_rho": dict(optimizer="flexa", flexa_tau0=8.0, flexa_rho=0.9),
+    "l1": dict(optimizer="flexa", flexa_tau0=4.0, flexa_l1=0.05,
+               flexa_select="all"),
+    "diag_q": dict(optimizer="flexa", flexa_tau0=2.0, flexa_diag_q=True),
+    "tau_adapt": dict(optimizer="flexa", flexa_tau0=0.05,
+                      flexa_select="all", flexa_gamma0=1.0),
+    "adamw": dict(optimizer="adamw", lr=0.05, weight_decay=0.0),
+}
+
+
+def _mask(kops, sqrt, stack, cfg, tau, q_ema, step, xs, gs):
+    """The selection mask of one FLEXA step, recomputed from the step's
+    inputs with one package's own ops (``kops``), as its optimizer forms
+    it: Eᵢ = √e2ᵢ of the best response, then the ρ-rule (or all).  ``step``
+    is the state's step counter as an fp32 array of that package."""
+    es = []
+    for i, (x, g) in enumerate(zip(xs, gs)):
+        d = tau[i]
+        if cfg.flexa_diag_q:
+            q = 0.99 * q_ema[i] + 0.01 * (g ** 2)
+            d = tau[i] * (sqrt(q / (1.0 - 0.99 ** (step + 1.0))) + 1e-8)
+        c = cfg.flexa_l1 if cfg.flexa_l1 > 0 else 0.0   # no embed/norm here
+        es.append(kops.flexa_best_response(x, g, d, c)[1])
+    E = sqrt(stack(es))
+    if cfg.flexa_select == "all":
+        return [1.0] * len(xs)
+    return [float(e >= cfg.flexa_rho * E.max()) for e in E]
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_quad_problem_steps_match_reference(variant):
+    kw = VARIANTS[variant]
+    jinit, jupdate = JO.get_optimizer(JTrainConfig(**kw))
+    init, update = O.get_optimizer(TrainConfig(**kw))
+    params = {k: jnp.asarray(v) for k, v in _start().items()}
+    jstate = jinit(params)
+    leaves, loss_and_grads = _port_problem()
+    state = init(leaves)
+    flexa = kw["optimizer"] == "flexa"
+    cfg = TrainConfig(**kw)
+    for step in range(50):
+        jl, jg = jax.value_and_grad(_jloss)(params)
+        loss, grads = loss_and_grads()
+        if flexa:
+            jq = jstate.q_ema and [jstate.q_ema[k] for k in ("a", "b")]
+            jmask = _mask(JK, jnp.sqrt, jnp.stack, cfg, jstate.tau, jq,
+                          jstate.step.astype(jnp.float32),
+                          [params["a"], params["b"]],
+                          [jg["a"], jg["b"]])
+            q = state.q_ema and [qs[0] for qs in state.q_ema]
+            mask = _mask(TK, torch.sqrt, torch.stack, cfg, state.tau, q,
+                         state.step.to(torch.float32),
+                         [leaf.tensors[0].detach() for leaf in leaves],
+                         [gs[0] for gs in grads])
+            assert mask == jmask, step
+        params, jstate, jm = jupdate(jg, jstate, params, jl)
+        _, state, m = update(grads, state, leaves, loss)
+        after = _port_values(leaves)
+        for k in ("a", "b"):
+            np.testing.assert_allclose(after[k], np.asarray(params[k]),
+                                       rtol=0, atol=1e-6, err_msg=(step, k))
+        if flexa:
+            assert float(m["flexa/sel_frac"]) == float(jm["flexa/sel_frac"])
+            assert float(m["flexa/sel_frac"]) == np.mean(mask)
+            np.testing.assert_allclose(state.tau.numpy(),
+                                       np.asarray(jstate.tau), rtol=0)
+            assert int(state.n_tau_changes) == int(jstate.n_tau_changes)
+            np.testing.assert_allclose(float(state.gamma),
+                                       float(jstate.gamma), rtol=1e-7)
+    assert int(state.step) == int(jstate.step) == 50
+
+
+def test_stablelm_leaves_and_l1_mask_match_reference():
+    """12 leaves in the reference's flatten order, with its shapes and
+    its ℓ1 rule per leaf (checked on the full-width tree: the port's model
+    on the meta device, the reference's through ``eval_shape``)."""
+    jcfg, cfg = jget_config("stablelm-3b"), get_config("stablelm-3b")
+    shapes = jax.eval_shape(lambda: JT.init_params(jcfg,
+                                                   jax.random.PRNGKey(0)))
+    flat, _ = jax.tree_util.tree_flatten_with_path(shapes)
+    leaves = T.param_leaves(cfg, T.DenseLM(cfg, device="meta"))
+    assert len(leaves) == len(flat) == 12
+    masks = {}
+    for (path, sds), leaf in zip(flat, leaves):
+        assert tuple(p.key for p in path) == leaf.path
+        assert O.path_name(leaf.path) == "/".join(str(p) for p in path)
+        assert O._l1_mask(leaf.path) == JO._l1_mask(path)
+        shape = ((len(leaf.tensors),) + tuple(leaf.tensors[0].shape)
+                 if leaf.stacked else tuple(leaf.tensors[0].shape))
+        assert shape == tuple(sds.shape)
+        masks["/".join(leaf.path)] = O._l1_mask(leaf.path)
+    assert [name for name, m in masks.items() if not m] == [
+        "embed", "final_norm"]
+    assert masks["layers/ln1"] and masks["layers/ln2"]
+    assert sum(len(leaf.tensors) for leaf in leaves) == 3 + 9 * 32
+
+
+def test_flexa_defaults_at_full_layer_width_match_reference():
+    """One stablelm-3b layer at full width (d_model 2560, 32 heads of 80,
+    d_ff 6912; vocab cut to 256 to keep the test small), fp32, the
+    default TrainConfig, 4 steps of each package's step_fn from the same
+    weights: the losses agree within 1e-5 relative, selection included.
+    With τ⁰ = 1 the defaults do not descend at this width in either
+    package: the loss rises several-fold within 3 steps (the reference's
+    descent test runs the reduced config only)."""
+    from repro.config.base import TrainConfig as JTC
+    from repro.distributed import compression as JCOMP
+    from repro.train.loop import TrainLoop as JTrainLoop
+    from repro_torch.train.loop import TrainLoop
+
+    kw = dict(num_layers=1, vocab_size=256, dtype="float32")
+    jcfg = jget_config("stablelm-3b").replace(**kw)
+    cfg = get_config("stablelm-3b").replace(**kw)
+    params = JT.init_params(jcfg, jax.random.PRNGKey(0))
+    model = T.model_from_arrays(
+        cfg, jax.tree_util.tree_map(np.asarray, params), device="cpu")
+    jloop = JTrainLoop(jcfg, JTC(), batch=1, seq_len=32)
+    loop = TrainLoop(cfg, TrainConfig(), batch=1, seq_len=32, device="cpu")
+    jopt, jcomp = jloop.opt_init(params), JCOMP.init_state(params)
+    opt = loop.opt_init(T.param_leaves(cfg, model))
+    losses, jlosses = [], []
+    for step in range(4):
+        params, jopt, jcomp, jm = jloop.step_fn(
+            params, jopt, jcomp,
+            {k: jnp.asarray(v) for k, v in jloop.pipe(step).items()})
+        model, opt, _, m = loop.step_fn(model, opt, None, loop.batch(step))
+        np.testing.assert_allclose(float(m["flexa/sel_frac"]),
+                                   float(jm["flexa/sel_frac"]), rtol=1e-6)
+        losses.append(float(m["loss"]))
+        jlosses.append(float(jm["loss"]))
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-5)
+    assert max(jlosses) > 5 * jlosses[0] and max(losses) > 5 * losses[0]
+
+
+def test_flexa_state_is_memory_lean():
+    """O(#leaves) scalars of state; AdamW carries 2× the parameters."""
+    leaves, _ = _port_problem()
+    init, _ = O.flexa_optimizer(TrainConfig(optimizer="flexa"))
+    state = init(leaves)
+    n_params = sum(leaf.tensors[0].numel() for leaf in leaves)
+    n_state = sum(t.numel() for t in state[:6])
+    assert state.q_ema is None
+    assert n_state < 16 + 2 * len(leaves)
+    a_init, _ = O.adamw_optimizer(TrainConfig(optimizer="adamw"))
+    astate = a_init(leaves)
+    n_adam = sum(t.numel() for group in (astate.mu, astate.nu)
+                 for ts in group for t in ts)
+    assert n_adam >= 2 * n_params
+
+
+def _port_run(kw, steps):
+    init, update = O.get_optimizer(TrainConfig(**kw))
+    leaves, loss_and_grads = _port_problem()
+    state = init(leaves)
+    first = float(loss_and_grads()[0])
+    metrics = None
+    for _ in range(steps):
+        loss, grads = loss_and_grads()
+        _, state, metrics = update(grads, state, leaves, loss)
+    return leaves, state, metrics, first, float(loss_and_grads()[0])
+
+
+def test_flexa_descends_and_converges():
+    _, _, _, first, final = _port_run(VARIANTS["flexa"], 200)
+    assert final < 1e-3 * first
+
+
+def test_flexa_greedy_selects_high_error_blocks():
+    _, _, m, _, _ = _port_run(VARIANTS["greedy_rho"], 1)
+    assert 0 < float(m["flexa/sel_frac"]) < 1.0
+
+
+def test_flexa_l1_sparsifies():
+    leaves, _, _, _, _ = _port_run(VARIANTS["l1"], 300)
+    assert float((leaves[0].tensors[0] == 0).float().mean()) > 0.9
+
+
+def test_flexa_tau_adapts_on_increase():
+    _, state, _, _, _ = _port_run(VARIANTS["tau_adapt"], 20)
+    assert float(state.tau[0]) > 0.05
+    assert int(state.n_tau_changes) <= O.MAX_TAU_CHANGES
+
+
+def test_flexa_diag_q_variant():
+    _, _, _, _, final = _port_run(VARIANTS["diag_q"], 150)
+    assert final < 1e-2
+
+
+def test_adamw_baseline_descends():
+    _, _, _, first, final = _port_run(VARIANTS["adamw"], 300)
+    assert final < 1e-3 * first
+
+
+def test_update_stays_on_the_device_side():
+    """The update reads nothing back: every state field and metric is a
+    tensor (the loop's one sync per step is the loss)."""
+    leaves, loss_and_grads = _port_problem()
+    init, update = O.flexa_optimizer(TrainConfig(flexa_diag_q=True))
+    state = init(leaves)
+    loss, grads = loss_and_grads()
+    _, state, metrics = update(grads, state, leaves, loss)
+    assert all(isinstance(v, torch.Tensor) for v in state[:6])
+    assert all(isinstance(v, torch.Tensor) for v in metrics.values())
+    assert state.tau.shape == (2,) and state.tau.dtype == torch.float32
+    assert state.step.dtype == torch.int32
+
+
+def test_unknown_optimizer_raises():
+    with pytest.raises(ValueError):
+        O.get_optimizer(TrainConfig(optimizer="sgd"))

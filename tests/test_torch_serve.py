@@ -151,7 +151,7 @@ def test_registry_and_cache_specs():
     assert (cfg.num_layers, cfg.d_model, cfg.d_inner, cfg.ssm_nheads,
             cfg.ssm_state, cfg.ssm_chunk, cfg.vocab_size) == \
         (48, 2048, 4096, 64, 128, 256, 50280)
-    for arch in ("zamba2-1.2b", "yi-6b", "qwen2-vl-72b"):
+    for arch in ("zamba2-1.2b", "deepseek-67b", "qwen2-vl-72b"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             get_config(arch)
     with pytest.raises(KeyError):
