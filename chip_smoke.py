@@ -46,7 +46,17 @@ each failing the run when its check fails:
                printed (a top-2 margin below bf16 rounding can flip), and
                the same weights in fp32 must give each token within 1e-4
                of the max logit.
-8. train    — slice 3's main path: full-width stablelm-3b (32 layers,
+8. serve_dense — slice 4's main path: full-width stablelm-3b (32
+               layers, MHA, D 80, random weights from a seeded generator)
+               through ``ServeEngine.generate``, 4 prompts of 4096 tokens
+               and 32 new tokens, greedy; ``flash_attention`` launched
+               once per layer in the prefill (32, by counter and by
+               profiler), finite logits, the same measurements and greedy
+               checks as ``serve``.  Then yi-6b (GQA, 32 query heads over
+               4, D 128) at full width, 2 prompts of 2048 and 8 new
+               tokens: 32 launches by counter, finite logits, the fp32
+               greedy check.
+9. train    — slice 3's main path: full-width stablelm-3b (32 layers,
                random weights from a seeded generator) through
                ``TrainLoop.run``, FLEXA with the default settings, bf16
                activations, batch 2 × 4096 (train_4k's sequence, the
@@ -57,7 +67,7 @@ each failing the run when its check fails:
                step.  Before it, on step 1's x and gradients, every
                tensor's kernel z equals its plain version bit for bit and
                e2 agrees within 1e-5 relative.
-9. descent  — reduced stablelm-3b on the card, 30 FLEXA steps at batch
+10. descent — reduced stablelm-3b on the card, 30 FLEXA steps at batch
                4 × 64: the mean of the last 5 losses is below the mean of
                the first 5 (the reference's own check,
                ``tests/test_train_serve.py:16-26``).
@@ -66,7 +76,13 @@ The ``kernels`` phase also sweeps ``best_response`` against its plain
 version: sizes 1, 1000, (2560, 2560), (2560, 6912), (50304, 2560) and a
 view one element into its storage; scalar and dense d; c = 0 and 1e-3;
 fp32 and bf16 x and g.  z must equal the plain z bit for bit, e2 agree
-within 1e-5 relative, and a second launch give the same bits.
+within 1e-5 relative, and a second launch give the same bits.  And
+``flash_attention``: MHA (32/32 heads, D 80), GQA (32/4, D 128) and MQA
+(8/1, D 64), causal and not, Sq = Skv, the end-aligned Sq < Skv, Sq = 1,
+ragged Skv (4133), and the stablelm-3b and yi-6b prefills at full size
+(4 × 4096); fp32 within 2e-5 and bf16 within 2 bf16 ulps per element
+plus 2e-5, finite, a second launch bitwise, and a causal call with
+Sq > Skv refused.
 
 Then a ``{"kernels": [...]}`` line (device time, plain time, library
 time and bound of each kernel at its path's shapes), the card's name and
@@ -98,17 +114,23 @@ TF32_OPS_PER_S = 495e12             # tensor cores, beside it for reference
 REPLACES = {"gather_rows": "src/repro/kernels/flexa_prox.py:278",
             "scatter_rows": "src/repro/kernels/flexa_prox.py:308",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:83",
-            "best_response": "src/repro/kernels/flexa_prox.py:55"}
+            "best_response": "src/repro/kernels/flexa_prox.py:55",
+            "flash_attention": "src/repro/kernels/flash_attention.py:86"}
 SOURCES = {"gather_rows": "src/repro_torch/kernels/csrc/compact_rows.cu",
            "scatter_rows": "src/repro_torch/kernels/csrc/compact_rows.cu",
            "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
-           "best_response": "src/repro_torch/kernels/csrc/flexa_prox.cu"}
+           "best_response": "src/repro_torch/kernels/csrc/flexa_prox.cu",
+           "flash_attention":
+               "src/repro_torch/kernels/csrc/flash_attention.cu"}
 #: Device-kernel names (substrings of the profiler's records) per wrapper.
 KERNEL_NAMES = {"gather_rows": ("gather_wide", "gather_narrow"),
                 "scatter_rows": ("scatter_narrow",),
                 "ssd_scan": ("ssd_scan_chunked",),
-                "best_response": ("flexa_best_response_kernel",)}
+                "best_response": ("flexa_best_response_kernel",),
+                "flash_attention": ("flash_attention_fwd",)}
 SERVE = dict(arch="mamba2-1.3b", batch=4, prompt=4096, new=32, seed=0)
+SERVE_DENSE = dict(arch="stablelm-3b", batch=4, prompt=4096, new=32, seed=0)
+SERVE_GQA = dict(arch="yi-6b", batch=2, prompt=2048, new=8, seed=0)
 TRAIN = dict(arch="stablelm-3b", batch=2, seq=4096, steps=6)
 DESCENT = dict(arch="stablelm-3b", batch=4, seq=64, steps=30)
 #: Shapes of the best_response sweep: 1, ragged 1000, the layer tensors
@@ -120,6 +142,16 @@ SSD_REDUCED = (2, 64, 3, 16, 8, 16)
 SSD_FULL = [(1, 256, 64, 64, 128, 256), (4, 4096, 64, 64, 128, 256),
             (4, 4133, 64, 64, 128, 256)]
 SSD_32K = (1, 32768, 64, 64, 128, 256)       # a prefill_32k sequence
+#: (B, Hq, Hkv, Sq, Skv, D, causal) of the flash_attention sweep: MHA
+#: (stablelm-3b, 32/32, D 80), GQA (yi-6b, 32/4, D 128), MQA (8/1, D 64);
+#: causal and not; Sq = Skv, the end-aligned Sq < Skv, Sq = 1, ragged
+#: Skv; and the two serve prefills at full size.
+FA_SWEEP = [(1, 32, 32, 512, 512, 80, True), (1, 32, 32, 512, 512, 80, False),
+            (2, 32, 4, 256, 1024, 128, True), (2, 8, 1, 1, 4133, 64, True),
+            (1, 32, 4, 300, 4133, 128, True), (1, 8, 1, 777, 777, 64, False),
+            (2, 32, 32, 1, 4133, 80, True)]
+FA_STABLELM = (4, 32, 32, 4096, 4096, 80, True)
+FA_YI = (4, 32, 4, 4096, 4096, 128, True)
 
 
 class PhaseError(Exception):
@@ -248,7 +280,7 @@ def window_edges(torch, prof):
             (t1 - max(e.end_ns() for e in ev)) / 1e6], len(ev)
 
 
-def phase_setup(torch, build, fp, ssd):
+def phase_setup(torch, build, fp, ssd, fa):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -262,6 +294,9 @@ def phase_setup(torch, build, fp, ssd):
     fp.library()
     fp.br_library()
     ssd.library()
+    fa.library()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "fp32 matmuls must run in full fp32 (TF32 is on)")
     say("setup", card=card, torch=torch.__version__,
         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
         build_s={k: round(v, 3) for k, v in build.build_seconds.items()},
@@ -358,7 +393,60 @@ def ssd_sweep(torch, ssd, dev):
     return err, len(cases) * len(err)
 
 
-def phase_kernels(torch, fp, ssd, dev):
+def fa_inputs(torch, shape, dtype, seed, dev):
+    """q, k, v of a flash_attention call, N(0, 1) in ``dtype``."""
+    B, Hq, Hkv, Sq, Skv, D, _ = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(s, generator=g, device=dev).to(dtype) for s in
+                 ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D)))
+
+
+def fa_sweep(torch, fa, dev):
+    """flash_attention against its plain version over the sweep: fp32
+    within 2e-5 (``tests/test_kernels.py``'s tolerance), bf16 within 2
+    bf16 ulps of each element plus that; finite, and a second launch
+    bitwise.  A causal call with Sq > Skv must raise."""
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    cases = FA_SWEEP + [FA_STABLELM, FA_YI]
+    for i, shape in enumerate(cases):
+        causal = shape[-1]
+        for name in err:
+            q, k, v = fa_inputs(torch, shape, getattr(torch, name), i, dev)
+            got = fa.flash_attention(q, k, v, causal=causal)
+            again = fa.flash_attention(q, k, v, causal=causal)
+            check(torch.equal(got, again), f"flash_attention {shape} {name}: "
+                  "a second launch gave other bits")
+            want = fa.flash_attention.plain(q, k, v, causal=causal)
+            check(got.dtype == want.dtype and got.shape == want.shape,
+                  f"flash_attention {shape}: {got.dtype}{tuple(got.shape)} "
+                  f"vs {want.dtype}{tuple(want.shape)}")
+            gf, wf = got.float(), want.float()
+            check(bool(torch.isfinite(gf).all()),
+                  f"flash_attention {shape} {name}: non-finite output")
+            dy = (gf - wf).abs()
+            tol = torch.full_like(wf, 2e-5)
+            if name == "bfloat16":
+                tol += 2 * torch.exp2(torch.floor(torch.log2(
+                    wf.abs().clamp_min(2.0 ** -126))) - 7)
+            check(bool((dy <= tol).all()), f"flash_attention {shape} {name} "
+                  f"differs from its plain version: max |dy| "
+                  f"{float(dy.max())}")
+            err[name] = max(err[name], float(dy.max()))
+            del q, k, v, got, again, want, gf, wf, dy, tol
+            torch.cuda.empty_cache()
+    q, k, v = fa_inputs(torch, (1, 2, 1, 9, 8, 16, True), torch.float32, 0,
+                        dev)
+    try:
+        fa.flash_attention(q, k, v, causal=True)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "flash_attention took a causal call with Sq > Skv")
+    torch.cuda.synchronize()
+    return err, len(cases) * len(err)
+
+
+def phase_kernels(torch, fp, ssd, fa, dev):
     err = {"gather_rows": 0.0, "scatter_rows": 0.0}
     times = {}
 
@@ -415,9 +503,12 @@ def phase_kernels(torch, fp, ssd, dev):
     err["ssd_scan"] = max(e[0] for e in ssd_err.values())
     br_z_err, br_e2_rel, n_br = br_sweep(torch, fp, dev)
     err["best_response"] = br_z_err
+    fa_err, n_fa = fa_sweep(torch, fa, dev)
+    err["flash_attention"] = max(fa_err.values())
     say("kernels", max_abs_err=err, gather_ms=times, ssd_scan_cases=n_ssd,
         ssd_scan_max_abs_err_y_h=ssd_err, best_response_cases=n_br,
-        best_response_max_e2_rel_err=br_e2_rel)
+        best_response_max_e2_rel_err=br_e2_rel, flash_attention_cases=n_fa,
+        flash_attention_max_abs_err=fa_err)
     return err
 
 
@@ -671,69 +762,94 @@ def phase_compact_vs_dense(torch, dev):
         compact_s=secs[True], dense_s=secs[False])
 
 
-def phase_serve(torch, ssd, dev):
-    """Slice 2's main path: full-width mamba2-1.3b through
-    ``ServeEngine.generate`` (batch 4 × prompt 4096, 32 new tokens,
-    greedy)."""
+def serve_run(torch, spec, wrapper, kname, dev, profile=True):
+    """One LM's main serving path: ``ServeEngine.generate`` of ``spec``'s
+    arch at full width (its batch, prompt length and new tokens) with
+    random weights from a seeded generator, greedy.  ``wrapper`` is
+    the kernel the prefill launches once per layer, ``kname`` its name in
+    ``KERNEL_NAMES``.  With ``profile``, the prefill alone and the prefill
+    with 8 decode steps run under ``torch.profiler`` first, and the
+    kernel's profiler launches must equal its counter's and the layer
+    count.  Then the main run, its counter set to 0 just before and read
+    just after (one launch per layer), and the first 4 tokens against full
+    ``forward``s teacher-forced on the engine's tokens: the gaps to the max
+    logit printed in the activation dtype and, with the same weights in
+    fp32, each within 1e-4.  Returns the phase's fields."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = get_config(SERVE["arch"])
-    nb, lp, new = SERVE["batch"], SERVE["prompt"], SERVE["new"]
+    cfg = get_config(spec["arch"])
+    arch, nb, lp, new = cfg.name, spec["batch"], spec["prompt"], spec["new"]
     t = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(SERVE["seed"])
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"])
     model = T.init_params(cfg, generator=gen, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
     eng = ServeEngine(cfg, model, max_len=lp + new, device=dev)
-    prompts = np.random.default_rng(SERVE["seed"]).integers(
+    prompts = np.random.default_rng(spec["seed"]).integers(
         0, cfg.vocab_size, (nb, lp)).astype(np.int32)
     # warm-up: cuBLAS handles, the weight casts, the kernel's first launch
     eng.generate(prompts[:, :512], max_new_tokens=2)
-
-    # the prefill alone (generate of one token), under the profiler
-    ssd.ssd_scan.launches = 0
-    torch.cuda.synchronize()
-    with profiled(torch) as prof:
-        t = time.perf_counter()
-        eng.generate(prompts, max_new_tokens=1)
+    out = {"arch": arch, "layers": cfg.num_layers, "batch": nb,
+           "prompt": lp, "new_tokens": new, "dtype": cfg.dtype,
+           "init_s": round(init_s, 3)}
+    if profile:
+        # the prefill alone (generate of one token), under the profiler
+        wrapper.launches = 0
         torch.cuda.synchronize()
-        prof_prefill_s = time.perf_counter() - t
-    prof_launches = ssd.ssd_scan.launches
-    per_kernel, busy = device_kernels(torch, prof, {
-        "ssd_scan": KERNEL_NAMES["ssd_scan"]})
-    del prof
-    check(per_kernel["ssd_scan"][0] == cfg.num_layers == prof_launches,
-          f"ssd_scan launches in the prefill: profiler "
-          f"{per_kernel['ssd_scan'][0]}, counter {prof_launches}, want "
-          f"{cfg.num_layers}")
+        with profiled(torch) as prof:
+            t = time.perf_counter()
+            eng.generate(prompts, max_new_tokens=1)
+            torch.cuda.synchronize()
+            prof_prefill_s = time.perf_counter() - t
+        prof_launches = wrapper.launches
+        per_kernel, busy = device_kernels(torch, prof, {
+            kname: KERNEL_NAMES[kname]})
+        del prof
+        check(per_kernel[kname][0] == cfg.num_layers == prof_launches,
+              f"{kname} launches in the prefill: profiler "
+              f"{per_kernel[kname][0]}, counter {prof_launches}, want "
+              f"{cfg.num_layers}")
+        # prefill + 8 decode steps under the profiler: device busy in decode
+        with profiled(torch) as prof:
+            t = time.perf_counter()
+            eng.generate(prompts, max_new_tokens=9)
+            torch.cuda.synchronize()
+            prof_decode_s = time.perf_counter() - t - prof_prefill_s
+        _, busy9 = device_kernels(torch, prof, {})
+        del prof
+        kernel_ms = per_kernel[kname][1]
+        out.update({
+            "profiled_prefill_ms": round(prof_prefill_s * 1e3, 3),
+            f"{kname}_profiler_launches": per_kernel[kname][0],
+            f"{kname}_device_ms": round(kernel_ms, 3),
+            f"{kname}_share_of_prefill": kernel_ms / (prof_prefill_s * 1e3),
+            "prefill_device_busy_ms": round(busy[1], 3),
+            "prefill_device_busy_share": busy[1] / (prof_prefill_s * 1e3),
+            # (device busy ms, wall ms) of 8 profiled decode steps, minus
+            # the profiled prefill's
+            "decode_device_busy_share":
+                (busy9[1] - busy[1]) / (prof_decode_s * 1e3),
+            "profiled_decode_ms_per_token": round(prof_decode_s * 1e3 / 8,
+                                                  3)})
     # the prefill alone, host clock
     torch.cuda.synchronize()
     t = time.perf_counter()
     eng.generate(prompts, max_new_tokens=1)
     prefill_s = time.perf_counter() - t
-    # prefill + 8 decode steps under the profiler: device busy in decode
-    with profiled(torch) as prof:
-        t = time.perf_counter()
-        eng.generate(prompts, max_new_tokens=9)
-        torch.cuda.synchronize()
-        prof_decode_s = time.perf_counter() - t - prof_prefill_s
-    _, busy9 = device_kernels(torch, prof, {})
-    del prof
-    decode_busy_share = (busy9[1] - busy[1]) / (prof_decode_s * 1e3)
 
     # the main run
     torch.cuda.reset_peak_memory_stats()
-    ssd.ssd_scan.launches = 0
+    wrapper.launches = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
     res = eng.generate(prompts, max_new_tokens=new)
     wall = time.perf_counter() - t
-    launches = ssd.ssd_scan.launches
+    launches = wrapper.launches
     peak = torch.cuda.max_memory_allocated()
-    check(launches == cfg.num_layers, f"ssd_scan launched {launches} "
-          f"times on the serve path, want {cfg.num_layers}")
+    check(launches == cfg.num_layers, f"{kname} launched {launches} times "
+          f"on the {arch} serve path, want {cfg.num_layers}")
     check(res.tokens.shape == (nb, new) and bool(
         ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
         f"generated tokens {res.tokens.shape}")
@@ -746,42 +862,54 @@ def phase_serve(torch, ssd, dev):
                                     res.tokens, dev)}
     cfg32 = cfg.replace(dtype="float32")
     eng32 = ServeEngine(cfg32, model, max_len=lp + new, device=dev)
-    ssd.ssd_scan.launches = 0
+    wrapper.launches = 0
     res32 = eng32.generate(prompts, max_new_tokens=4)
-    check(ssd.ssd_scan.launches == cfg.num_layers, "fp32 prefill launched "
-          f"ssd_scan {ssd.ssd_scan.launches} times")
+    check(wrapper.launches == cfg.num_layers, f"fp32 prefill launched "
+          f"{kname} {wrapper.launches} times")
     gaps["float32"] = greedy_gaps(torch, T, cfg32, model, prompts,
                                   res32.tokens, dev)
-    check(max(gaps["float32"]) <= 1e-4, f"fp32: an engine token is "
+    check(max(gaps["float32"]) <= 1e-4, f"{arch} fp32: an engine token is "
           f"{max(gaps['float32'])} below the forward's max logit")
     torch.cuda.synchronize()
     decode_ms = (wall - prefill_s) / (new - 1) * 1e3
-    ssd_ms = per_kernel["ssd_scan"][1]
-    say("serve", arch=cfg.name, layers=cfg.num_layers, batch=nb,
-        prompt=lp, new_tokens=new, dtype=cfg.dtype,
-        init_s=round(init_s, 3), wall_s=round(wall, 4),
-        prefill_ms=round(prefill_s * 1e3, 3),
-        decode_ms_per_token=round(decode_ms, 4),
-        tokens_per_s=round(nb * new / wall, 3),
-        decode_tokens_per_s=round(nb / decode_ms * 1e3, 3),
-        prefill_tokens_per_s=round(nb * lp / prefill_s, 1),
-        peak_memory_gib=round(peak / 2 ** 30, 3),
-        launches={"ssd_scan": launches},
-        profiled_prefill_ms=round(prof_prefill_s * 1e3, 3),
-        ssd_scan_device_ms=round(ssd_ms, 3),
-        ssd_scan_share_of_prefill=ssd_ms / (prof_prefill_s * 1e3),
-        prefill_device_busy_ms=round(busy[1], 3),
-        prefill_device_busy_share=busy[1] / (prof_prefill_s * 1e3),
-        # (device busy ms, wall ms) of 8 profiled decode steps, minus the
-        # profiled prefill's
-        decode_device_busy_share=decode_busy_share,
-        profiled_decode_ms_per_token=round(prof_decode_s * 1e3 / 8, 3),
+    out.update({
+        "wall_s": round(wall, 4), "prefill_ms": round(prefill_s * 1e3, 3),
+        "decode_ms_per_token": round(decode_ms, 4),
+        "tokens_per_s": round(nb * new / wall, 3),
+        "decode_tokens_per_s": round(nb / decode_ms * 1e3, 3),
+        "prefill_tokens_per_s": round(nb * lp / prefill_s, 1),
+        "peak_memory_gib": round(peak / 2 ** 30, 3),
+        "launches": {kname: launches},
         # per step, the largest (max logit − engine token's logit) of a
         # full forward teacher-forced on the engine's tokens
-        max_logit_gap_first_4=gaps,
-        first_tokens=res.tokens[0, :8].tolist())
+        "max_logit_gap_first_4": gaps,
+        "first_tokens": res.tokens[0, :8].tolist()})
     del model, eng, eng32
     torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve(torch, ssd, dev):
+    """Slice 2's main path: full-width mamba2-1.3b through
+    ``ServeEngine.generate`` (batch 4 × prompt 4096, 32 new tokens,
+    greedy)."""
+    out = serve_run(torch, SERVE, ssd.ssd_scan, "ssd_scan", dev)
+    say("serve", **out)
+    return out["launches"]["ssd_scan"]
+
+
+def phase_serve_dense(torch, fa, dev):
+    """Slice 4's main path: full-width stablelm-3b through
+    ``ServeEngine.generate`` (batch 4 × prompt 4096, 32 new tokens,
+    greedy), ``flash_attention`` once per layer in the prefill; then
+    yi-6b (GQA) at full width, batch 2 × 2048, 8 new tokens."""
+    out = serve_run(torch, SERVE_DENSE, fa.flash_attention,
+                    "flash_attention", dev)
+    launches = out["launches"]["flash_attention"]
+    say("serve_dense", **out)
+    out = serve_run(torch, SERVE_GQA, fa.flash_attention, "flash_attention",
+                    dev, profile=False)
+    say("serve_dense", **out)
     return launches
 
 
@@ -1034,7 +1162,7 @@ def br_row(torch, fp, launches, err, dev):
                       for k, v in timed.items()}}
 
 
-def kernel_line(torch, fp, ssd, r, launches, serve_launches, err, dev):
+def kernel_line(torch, fp, ssd, fa, r, launches, serve_launches, err, dev):
     """Each kernel timed at the path's largest shapes: the gather of Aᵀ
     at the widest bucket K (a full bucket, so ``index_select`` computes
     the same function), and the scatter of K values into (n, 1).
@@ -1083,7 +1211,72 @@ def kernel_line(torch, fp, ssd, r, launches, serve_launches, err, dev):
     rows.append(ssd_row(torch, ssd, serve_launches, err["ssd_scan"], dev))
     rows.append(br_row(torch, fp, launches["best_response"],
                        err["best_response"], dev))
+    rows.append(fa_row(torch, fa, launches["flash_attention"],
+                       err["flash_attention"], dev))
     return rows
+
+
+def fa_work(shape, itemsize):
+    """(FLOPs, bytes) a flash_attention call needs at ``shape``: 4·D per
+    (query, key) pair that the mask keeps (q·k and p·v, a multiply and an
+    add each), pairs counted exactly; q, k, v read once and the output
+    written once."""
+    B, Hq, Hkv, Sq, Skv, D, causal = shape
+    if causal:
+        off = Skv - Sq
+        pairs = sum(min(Skv, off + i + 1) for i in range(Sq))
+    else:
+        pairs = Sq * Skv
+    flops = 4 * B * Hq * D * pairs
+    nbytes = itemsize * (2 * B * Hq * Sq * D + 2 * B * Hkv * Skv * D)
+    return flops, nbytes
+
+
+def fa_row(torch, fa, launches, err, dev):
+    """flash_attention at the stablelm-3b prefill's per-layer shape (4 × 32
+    heads × 4096, D 80, bf16, causal) and at yi-6b's (32 heads over 4, D
+    128).  Times from CUDA events around back-to-back eager launches (a
+    launch takes milliseconds).  The library call is
+    ``scaled_dot_product_attention`` on fp32 copies with ``is_causal``
+    (the same fp32 function; timed here only, never on the path)."""
+    F = torch.nn.functional
+    timed = {}
+    for key, shape in (("stablelm-3b", FA_STABLELM), ("yi-6b", FA_YI)):
+        q, k, v = fa_inputs(torch, shape, torch.bfloat16, 41, dev)
+        flops, nbytes = fa_work(shape, 2)
+        t_bytes, t_ops = bytes_ms(nbytes), flops / FP32_OPS_PER_S * 1e3
+        rep = shape[1] // shape[2]
+        qf = q.float()
+        kf = k.float().repeat_interleave(rep, dim=1)
+        vf = v.float().repeat_interleave(rep, dim=1)
+        timed[key] = {
+            "shape": list(shape[:6]),
+            "ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v),
+                          reps=10),
+            "plain_ms": cuda_ms(torch, lambda: fa.flash_attention.plain(
+                q, k, v), reps=3),
+            "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qf, kf, vf, is_causal=True), reps=10),
+            "flops": flops, "bytes": nbytes,
+            "bytes_ms": t_bytes, "fp32_ops_ms": t_ops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        del q, k, v, qf, kf, vf
+        torch.cuda.empty_cache()
+    t = timed["stablelm-3b"]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": SOURCES["flash_attention"],
+            "replaces": REPLACES["flash_attention"],
+            "launches": launches, "max_abs_err": err,
+            "ms": round(t["ms"], 5), "plain_ms": round(t["plain_ms"], 5),
+            "bound_ms": round(t["bound_ms"], 5), "bound_by": t["bound_by"],
+            "library_ms": round(t["library_ms"], 5),
+            "shape": "q, k, v (4, 32, 4096, 80) bf16, causal (stablelm-3b "
+                     "prefill, one layer)",
+            "peak": "fp32 66.9 TFLOP/s (CUDA cores)",
+            "timed": {kk: {a: (round(b, 5) if isinstance(b, float) else b)
+                           for a, b in vv.items()}
+                      for kk, vv in timed.items()}}
 
 
 def ssd_row(torch, ssd, launches, err, dev):
@@ -1137,15 +1330,16 @@ def main() -> int:
         return 3
     from repro_torch.kernels import build
     from repro_torch.kernels import flexa_prox as fp
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     phase = "setup"
     try:
-        card = phase_setup(torch, build, fp, ssd)
+        card = phase_setup(torch, build, fp, ssd, fa)
         phase = "kernels"
-        err = phase_kernels(torch, fp, ssd, dev)
+        err = phase_kernels(torch, fp, ssd, fa, dev)
         phase = "goldens"
         phase_goldens(torch, dev)
         phase = "solo"
@@ -1158,13 +1352,15 @@ def main() -> int:
         phase_compact_vs_dense(torch, dev)
         phase = "serve"
         serve_launches = phase_serve(torch, ssd, dev)
+        phase = "serve_dense"
+        launches["flash_attention"] = phase_serve_dense(torch, fa, dev)
         phase = "train"
         launches["best_response"] = phase_train(torch, fp, dev)
         phase = "descent"
         phase_descent(torch, dev)
         phase = "kernel timing"
-        rows = kernel_line(torch, fp, ssd, r, launches, serve_launches, err,
-                           dev)
+        rows = kernel_line(torch, fp, ssd, fa, r, launches, serve_launches,
+                           err, dev)
     except Exception as exc:                          # report and fail
         print(f"FAIL {phase}: {type(exc).__name__}: {exc}", flush=True)
         raise

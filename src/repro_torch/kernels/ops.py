@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flexa_prox as _fp
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
@@ -95,6 +96,25 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64):
     if x.device.type == "cuda":
         return _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
     raise ValueError(f"no ssd_scan kernel for device {x.device}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale=None) -> torch.Tensor:
+    """Causal (or not) GQA attention → (B, Hq, Sq, D) in q's dtype.
+
+    q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D); queries aligned to the end
+    of the keys.  A causal call with Sq > Skv raises on every device:
+    there the oracle's first rows see no key (NaN) and the kernel's
+    would be 0.  The TPU's ``block_q`` / ``block_k`` are not part of the
+    interface: the CUDA kernel chooses its own tiles.
+    """
+    _on(q.device, k, v)
+    _fa.check_shapes(q, k, v, causal)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    if q.device.type == "cuda":
+        return _fa.flash_attention(q, k, v, causal=causal, scale=scale)
+    raise ValueError(f"no flash_attention kernel for device {q.device}")
 
 
 def ssd_decode(x_t, dt_t, A, B_t, C_t, h):

@@ -10,11 +10,14 @@ with −1 mapped to 0, then ``torch.where``.  ``ssd_scan_ref`` is the
 contract of :mod:`repro_torch.kernels.ssd_scan` up to summation order;
 ``ssd_scan_ragged`` runs it on any S, padded as the reference's
 dispatch pads; ``ssd_decode_ref`` is the single-token step, which has no
-kernel.  The dispatch (:mod:`repro_torch.kernels.ops`) runs these for
-tensors on the CPU only.
+kernel.  ``flash_attention_ref`` is the contract of
+:mod:`repro_torch.kernels.flash_attention` up to summation order.  The
+dispatch (:mod:`repro_torch.kernels.ops`) runs these for tensors on the
+CPU only.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -61,6 +64,41 @@ def scatter_rows_ref(vals: torch.Tensor, inv: torch.Tensor,
     inv = inv.to(torch.int64)
     taken = vals[torch.clamp_min(inv, 0)].to(base.dtype)
     return torch.where((inv >= 0).unsqueeze(-1), taken, base)
+
+
+def attention_scale(D: int) -> float:
+    """The default softmax scale D^-½ as the reference's oracle forms it:
+    an fp32 division of 1 by the fp32 square root of D."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(D)))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, scale=None) -> torch.Tensor:
+    """Naive O(S²) masked softmax attention — the oracle.
+
+    q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) with Hq % Hkv == 0.  Scores
+    and softmax in fp32, GQA by repeating k and v, queries aligned to the
+    end of the keys (offset Skv − Sq) under the causal mask; output cast
+    back to q's dtype.  The score matrix is updated in place, so a call
+    holds about two (B, Hq, Sq, Skv) fp32 tensors at its peak.
+    """
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    if scale is None:
+        scale = attention_scale(D)
+    f32 = torch.float32
+    kf = torch.repeat_interleave(k, rep, dim=1).to(f32)
+    vf = torch.repeat_interleave(v, rep, dim=1).to(f32)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(f32), kf)
+    logits.mul_(scale)
+    if causal:
+        qpos = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+        kpos = torch.arange(Skv, device=q.device)[None, :]
+        logits.masked_fill_(kpos > qpos, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    del logits
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
 
 
 def ssd_scan_ref(x, dt, A, B, C, *, chunk: int = 64):

@@ -2,8 +2,11 @@
 
     python -m repro_torch.launch.serve --arch mamba2-1.3b \\
         --batch 4 --prompt-len 4096 --new-tokens 32 --temperature 0
+    python -m repro_torch.launch.serve --arch stablelm-3b \\
+        --batch 4 --prompt-len 4096 --new-tokens 32 --temperature 0
 
-Runs on the card by default (``--device cuda``; raises where CUDA is
+``--arch`` takes the ported archs: ``mamba2-1.3b`` (ssm) and the dense
+``stablelm-3b`` and ``yi-6b``.  Runs on the card by default (``--device cuda``; raises where CUDA is
 missing); ``--device cpu --reduced`` serves the reduced config on the
 host.  Weights are random, drawn from ``--seed``.  Prints the tokens per
 second of the whole ``generate`` call (prefill included).  The

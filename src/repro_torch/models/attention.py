@@ -1,18 +1,29 @@
 """Attention layers, as ``repro.models.attention``: chunked (flash-style)
-attention in plain torch and the GQA projections of the dense family.
+attention in plain torch, single-token decode attention against a KV
+cache, and the GQA projections of the dense family.
 
-``chunked_attention`` is the reference's online softmax over KV blocks
-of 1024 with fp32 scores, query positions end-aligned to the keys and
-the zero padding of a ragged last block masked.  Each block's body runs
-under ``torch.utils.checkpoint`` (the reference wraps it in
-``jax.checkpoint``), so backward recomputes a block's (B, Hq, Sq, blk)
-scores instead of keeping all of them: the O(S²) matrix never lives in
-memory at once.  The reference runs this plain version on every path of
-its models (its Pallas ``flash_attention`` has no model caller), and so
-does the port.
+* ``chunked_attention`` is the reference's online softmax over KV blocks
+  of 1024 with fp32 scores, query positions end-aligned to the keys and
+  the zero padding of a ragged last block masked.  Each block's body
+  runs under ``torch.utils.checkpoint`` (the reference wraps it in
+  ``jax.checkpoint``), so backward recomputes a block's (B, Hq, Sq, blk)
+  scores instead of keeping all of them.  Training (``attention_layer``)
+  and the full ``forward`` run it: they need a gradient, and the
+  flash-attention kernel has none.
+* ``attention_prefill`` is the reference's ``attention_layer`` with
+  ``collect_kv`` for the prefill.  Its attention goes through
+  ``kernels.ops.flash_attention``: the CUDA kernel on the card, its plain
+  version on the CPU.  The reference's module docstring names
+  ``chunked_attention`` the path for training and prefill and the Pallas
+  kernel its per-block body on the TPU; both compute the same function
+  (fp32 scores, fp32 online softmax, end-aligned causal mask), and its
+  tests hold both against one oracle.
+* ``decode_attention`` / ``attention_decode``: one query token against
+  the cache, with the reference's numerics (below).
 
-Prefill/decode attention against a KV cache (``decode_attention``,
-``attention_decode``) belongs to dense serving and is not ported yet.
+Serving (``attention_prefill``, ``attention_decode``) casts the fp32
+weights through the cached :func:`L.cast_param`; training casts with
+:func:`L.cast` at every use, which autograd sees.
 """
 from __future__ import annotations
 
@@ -20,6 +31,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
@@ -80,6 +92,37 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (acc / torch.clamp_min(l, 1e-30)).to(q.dtype)
 
 
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cache_len, *, scale=None) -> torch.Tensor:
+    """One-step attention: q (B, Hq, 1, D) against the cache k, v
+    (B, Hkv, S, D), of which the first ``cache_len`` positions are valid.
+
+    The reference's numerics: the scaled q rounded back to q's dtype,
+    scores of the storage-dtype operands with fp32 products and sums
+    (``preferred_element_type=float32``), an fp32 softmax, p rounded to
+    the cache's dtype for P·V, fp32 sums again, output in q's dtype.
+    torch's bf16 ``matmul`` would round its output to bf16, so both
+    products run in fp32 on the operands upcast (exact products, fp32
+    sums).  Only the ``cache_len`` valid positions are read and upcast:
+    the reference's masked positions contribute exp(−1e30 − m) = 0.  GQA
+    is a grouped product (q reshaped to (B, Hkv, rep, D)); the cache is
+    never repeated.
+    """
+    B, Hq, _, D = q.shape
+    Hkv = k.shape[1]
+    rep = Hq // Hkv
+    n = int(cache_len)
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    f32 = torch.float32
+    qg = (q.to(f32) * scale).to(q.dtype).to(f32).reshape(B, Hkv, rep, D)
+    kf = k[:, :, :n].to(f32)
+    s = torch.matmul(qg, kf.transpose(-1, -2))        # (B, Hkv, rep, n)
+    p = torch.softmax(s, dim=-1).to(k.dtype).to(f32)
+    out = torch.matmul(p, v[:, :, :n].to(f32))        # (B, Hkv, rep, D)
+    return out.reshape(B, Hq, 1, D).to(q.dtype)
+
+
 # ------------------------------------------------------------------ #
 # Full GQA attention layer (projections + rope + attention + output) #
 # ------------------------------------------------------------------ #
@@ -125,20 +168,64 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(B, S, H * D)
 
 
+def _qkv(weight, x: torch.Tensor, positions: torch.Tensor,
+         cfg: ModelConfig):
+    """Roped q (B, Hq, S, dh), k and v (B, Hkv, S, dh) of x (B, S, d);
+    ``weight(name)`` gives the projection ``name`` in x's dtype."""
+    q = _split_heads(x @ weight("wq"), cfg.num_heads, cfg.head_dim)
+    k = _split_heads(x @ weight("wk"), cfg.num_kv_heads, cfg.head_dim)
+    v = _split_heads(x @ weight("wv"), cfg.num_kv_heads, cfg.head_dim)
+    if cfg.use_mrope:
+        raise NotImplementedError("M-RoPE (the vlm family) is not yet "
+                                  "ported: ROADMAP Queue 1 step 5b")
+    return (L.apply_rope(q, positions, cfg.rope_theta),
+            L.apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _served(p: AttnParams, dtype):
+    """Serving's weights: cached casts (:func:`L.cast_param`)."""
+    return lambda name: L.cast_param(p, name, dtype)
+
+
 def attention_layer(p: AttnParams, x: torch.Tensor, positions: torch.Tensor,
                     cfg: ModelConfig, *, causal: bool = True,
                     block: int = 1024):
     """Training attention over x: (B, S, d_model) → (out, (k, v)).
 
     Weights are cast to x's dtype through autograd (:func:`L.cast`)."""
-    dt = x.dtype
-    q = _split_heads(x @ L.cast(p.wq, dt), cfg.num_heads, cfg.head_dim)
-    k = _split_heads(x @ L.cast(p.wk, dt), cfg.num_kv_heads, cfg.head_dim)
-    v = _split_heads(x @ L.cast(p.wv, dt), cfg.num_kv_heads, cfg.head_dim)
-    if cfg.use_mrope:
-        raise NotImplementedError("M-RoPE (the vlm family) is not yet "
-                                  "ported: ROADMAP Queue 1 step 5b")
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    def weight(name):
+        return L.cast(getattr(p, name), x.dtype)
+    q, k, v = _qkv(weight, x, positions, cfg)
     out = chunked_attention(q, k, v, causal=causal, block=block)
-    return _merge_heads(out) @ L.cast(p.wo, dt), (k, v)
+    return _merge_heads(out) @ weight("wo"), (k, v)
+
+
+def attention_prefill(p: AttnParams, x: torch.Tensor,
+                      positions: torch.Tensor, cfg: ModelConfig):
+    """Prefill attention over x (B, S, d_model) → (out, (k, v)), k and v
+    (B, Hkv, S, dh) for the decode cache.  The attention itself is
+    ``kops.flash_attention`` (causal): the CUDA kernel for a tensor on the
+    card, once per layer."""
+    weight = _served(p, x.dtype)
+    q, k, v = _qkv(weight, x, positions, cfg)
+    out = kops.flash_attention(q, k, v, causal=True)
+    return _merge_heads(out) @ weight("wo"), (k, v)
+
+
+def attention_decode(p: AttnParams, x: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, pos: int, cfg: ModelConfig):
+    """Single-token attention step.
+
+    x (B, 1, d); cache_k, cache_v (B, Hkv, S, dh) with ``pos`` valid
+    entries.  Writes the new token's k and v at index ``pos`` **in
+    place** (the reference returns updated copies) and attends to
+    [0, pos].  Returns (out, cache_k, cache_v).
+    """
+    B, pos = x.shape[0], int(pos)
+    posn = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    weight = _served(p, x.dtype)
+    q, k, v = _qkv(weight, x, posn, cfg)
+    cache_k[:, :, pos] = k[:, :, 0].to(cache_k.dtype)
+    cache_v[:, :, pos] = v[:, :, 0].to(cache_v.dtype)
+    out = decode_attention(q, cache_k, cache_v, pos + 1)
+    return _merge_heads(out) @ weight("wo"), cache_k, cache_v

@@ -1,6 +1,7 @@
 """Decode-cache specifications per (arch × shape), as ``repro.models.io``
-(``cache_specs`` / ``zero_cache``) for the ``ssm`` family; the other
-families raise ``NotImplementedError`` until they are ported."""
+(``cache_specs`` / ``zero_cache``) for the ``dense`` and ``ssm``
+families; the other families raise ``NotImplementedError`` until they
+are ported."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -23,14 +24,19 @@ def act_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def cache_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
-    """Specs of the decode cache at ``seq_len`` capacity: the stacked
-    per-layer conv window and SSD state (neither grows with seq_len)."""
+    """Specs of the decode cache at ``seq_len`` capacity: for ``dense``
+    the stacked per-layer keys and values (L, B, Hkv, seq_len, dh) in the
+    activation dtype; for ``ssm`` the stacked conv window and SSD state
+    (neither grows with seq_len)."""
+    B, Lr = shape.global_batch, cfg.num_layers
+    if cfg.family == "dense":
+        kv = TensorSpec((Lr, B, cfg.num_kv_heads, shape.seq_len,
+                         cfg.head_dim), act_dtype(cfg))
+        return {"k": kv, "v": kv}
     if cfg.family != "ssm":
         raise NotImplementedError(
             f"the decode cache of family {cfg.family!r} is not yet ported: "
-            "ROADMAP Queue 1 step 5a (dense serving) / 5b (the other "
-            "families)")
-    B, Lr = shape.global_batch, cfg.num_layers
+            "ROADMAP Queue 1 step 5b (the other families)")
     conv_ch = cfg.d_inner + 2 * cfg.ssm_state
     return {
         "conv": TensorSpec((Lr, B, cfg.ssm_conv_width - 1, conv_ch),

@@ -1,6 +1,6 @@
 """Model assembly, as ``repro.models.transformer``, for the ``dense``
-family (training) and the ``ssm`` family (attention-free Mamba2,
-serving):
+family (training and serving) and the ``ssm`` family (attention-free
+Mamba2, serving):
 
   init_params(cfg, generator=, device=)       → DenseLM | Mamba2LM
   model_from_arrays(cfg, arrays, device=)     → the same, from the
@@ -21,11 +21,14 @@ reference's flatten order, for the optimizer and the checkpoint.
 Training (``dense``): parameters require grad, weights are cast to the
 activation dtype through autograd at each use, and with ``remat`` each
 layer runs under ``torch.utils.checkpoint`` as the reference's ``_rscan``
-wraps its body in ``jax.checkpoint``.  Serving (``ssm``): the entry
-points run under ``torch.inference_mode``; dense prefill/decode (the KV
-cache) waits for dense serving.  Training ``ssm`` needs a backward of
-the ``ssd_scan`` kernel, which no package has yet.  Other families raise
-``NotImplementedError``.
+wraps its body in ``jax.checkpoint``; attention is ``chunked_attention``.
+Serving (``dense`` and ``ssm``): the entry points run under
+``torch.inference_mode`` and cast weights through the cached
+``L.cast_param``.  Dense prefill runs each layer's attention through the
+``flash_attention`` kernel and returns the stacked KV cache (L, B, Hkv,
+S, dh); dense decode writes each new token's k and v into that cache in
+place.  Training ``ssm`` needs a backward of the ``ssd_scan`` kernel,
+which no package has yet.  Other families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -36,8 +39,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.config.base import ModelConfig
+from repro_torch.config.base import ModelConfig, ShapeConfig
 from repro_torch.models import attention as ATT
+from repro_torch.models import io as IO
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 from repro_torch.models.io import act_dtype
@@ -51,15 +55,6 @@ def _require_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} is not yet ported: ROADMAP Queue 1 "
             "step 5b (the other LM families)")
-
-
-def _require_ssm(cfg: ModelConfig) -> None:
-    """Serving (prefill / decode) runs the ``ssm`` family only."""
-    _require_ported(cfg)
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            f"serving the {cfg.family!r} family (prefill/decode with a KV "
-            "cache) is not yet ported: ROADMAP Queue 1 step 5a")
 
 
 def _ones(n: int, device) -> nn.Parameter:
@@ -347,11 +342,33 @@ def forward(cfg: ModelConfig, model: nn.Module, batch: dict):
     return _logits(cfg, model, x), aux
 
 
-@torch.inference_mode()
-def prefill(cfg: ModelConfig, model: Mamba2LM, batch: dict):
-    """Returns (last-position fp32 logits (B, V), cache dict)."""
-    _require_ssm(cfg)
-    x = L.embed(_tokens(batch["tokens"], model), model.embed, act_dtype(cfg))
+def _serve_mlp(p: DenseBlock, h: torch.Tensor, cfg: ModelConfig
+               ) -> torch.Tensor:
+    """The SwiGLU MLP of a served dense layer, weights cast through the
+    cached :func:`L.cast_param`."""
+    w = (L.cast_param(p.mlp, n, h.dtype) for n in ("w1", "w3", "w2"))
+    return L.swiglu(L.rms_norm(h, p.ln2, cfg.norm_eps), *w)
+
+
+def _dense_prefill(cfg: ModelConfig, model: DenseLM, x: torch.Tensor):
+    """Dense layers over the prompt → (hidden, {"k", "v"}), each layer's
+    k and v written into one stacked (L, B, Hkv, S, dh) buffer."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    spec = IO.cache_specs(cfg, ShapeConfig("prefill", "prefill", S, B))["k"]
+    K = torch.empty(spec.shape, dtype=spec.dtype, device=x.device)
+    V = torch.empty(spec.shape, dtype=spec.dtype, device=x.device)
+    for li, blk in enumerate(model.layers):
+        a, (k, v) = ATT.attention_prefill(
+            blk.attn, L.rms_norm(x, blk.ln1, cfg.norm_eps), positions, cfg)
+        K[li].copy_(k)
+        V[li].copy_(v)
+        x = x + a
+        x = x + _serve_mlp(blk, x, cfg)
+    return x, {"k": K, "v": V}
+
+
+def _ssm_prefill(cfg: ModelConfig, model: Mamba2LM, x: torch.Tensor):
     convs, states = [], []
     for blk in model.layers:
         out, entry = _ssm_prefill_layer(
@@ -359,27 +376,50 @@ def prefill(cfg: ModelConfig, model: Mamba2LM, batch: dict):
         x = x + out
         convs.append(entry["conv"])
         states.append(entry["ssm"])
-    cache = {"conv": torch.stack(convs), "ssm": torch.stack(states)}
+    return x, {"conv": torch.stack(convs), "ssm": torch.stack(states)}
+
+
+@torch.inference_mode()
+def prefill(cfg: ModelConfig, model: nn.Module, batch: dict):
+    """Returns (last-position fp32 logits (B, V), cache dict): ``{"k",
+    "v"}`` (L, B, Hkv, S, dh) for ``dense``, ``{"conv", "ssm"}`` for
+    ``ssm``."""
+    _require_ported(cfg)
+    x = L.embed(_tokens(batch["tokens"], model), model.embed, act_dtype(cfg))
+    if cfg.family == "dense":
+        x, cache = _dense_prefill(cfg, model, x)
+    else:
+        x, cache = _ssm_prefill(cfg, model, x)
     x = L.rms_norm(x[:, -1:, :], model.final_norm, cfg.norm_eps)
     return _logits(cfg, model, x)[:, 0, :], cache
 
 
 @torch.inference_mode()
-def decode_step(cfg: ModelConfig, model: Mamba2LM, token, cache: dict,
+def decode_step(cfg: ModelConfig, model: nn.Module, token, cache: dict,
                 pos=None):
     """token (B, 1) → (fp32 logits (B, V), cache).
 
     ``cache`` is updated in place, layer by layer, and returned: the
-    reference returns a new cache, which here would copy the (L, B, H,
-    N, P) state every token.  ``pos`` (the count of valid positions) is
-    not read by the ``ssm`` family.
+    reference returns a new cache, which here would copy the whole cache
+    every token.  ``dense`` writes the token's k and v at ``pos`` (the
+    count of valid positions, a host int) of each layer's slice of the
+    stacked cache and attends to [0, pos]; ``ssm`` does not read ``pos``.
     """
-    _require_ssm(cfg)
+    _require_ported(cfg)
+    if cfg.family == "dense" and pos is None:
+        raise ValueError("dense decode needs pos, the count of valid cache "
+                         "positions")
     x = L.embed(_tokens(token, model), model.embed, act_dtype(cfg))
     for li, blk in enumerate(model.layers):
+        h = L.rms_norm(x, blk.ln1, cfg.norm_eps)
+        if cfg.family == "dense":
+            a, _, _ = ATT.attention_decode(blk.attn, h, cache["k"][li],
+                                           cache["v"][li], pos, cfg)
+            x = x + a
+            x = x + _serve_mlp(blk, x, cfg)
+            continue
         entry = {"conv": cache["conv"][li], "ssm": cache["ssm"][li]}
-        out, new = SSM.ssm_decode(
-            blk.ssm, L.rms_norm(x, blk.ln1, cfg.norm_eps), entry, cfg)
+        out, new = SSM.ssm_decode(blk.ssm, h, entry, cfg)
         x = x + out
         cache["conv"][li].copy_(new["conv"])
         cache["ssm"][li].copy_(new["ssm"])

@@ -1,6 +1,8 @@
 """LM text generation, as ``repro.serve.engine.ServeEngine``: batched
 prefill, then decode of one token per step for the whole batch in
-lock-step, greedy or temperature sampling (seeded).
+lock-step, greedy or temperature sampling (seeded), for the ``dense``
+(KV cache, ``flash_attention`` in the prefill) and ``ssm`` (conv window
+and SSD state, ``ssd_scan`` in the prefill) families.
 
 The reference jits prefill and decode once per (batch, length) bucket
 and shards over a mesh; the port runs eagerly on one ``device``
@@ -27,7 +29,7 @@ class GenerationResult:
 
 
 class ServeEngine:
-    def __init__(self, cfg: ModelConfig, model: T.Mamba2LM, *,
+    def __init__(self, cfg: ModelConfig, model: T.DenseLM | T.Mamba2LM, *,
                  max_len: int = 256, device="cuda"):
         self.cfg = cfg
         self.model = model
@@ -39,7 +41,9 @@ class ServeEngine:
                              f", engine on {self.device}")
 
     def _grow_cache(self, cache: dict, batch: int) -> dict:
-        """Re-home the prefill cache into max_len-capacity buffers."""
+        """Re-home the prefill cache into max_len-capacity buffers: each
+        prefill tensor is copied into the leading corner of its zeroed
+        buffer (dense: (L, B, Hkv, Lp, dh) into (L, B, Hkv, max_len, dh))."""
         shape = ShapeConfig("serve", "decode", self.max_len, batch)
         full = IO.zero_cache(self.cfg, shape, device=self.device)
         for name, dst in full.items():

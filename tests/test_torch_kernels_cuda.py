@@ -11,7 +11,10 @@ their plain versions bit for bit.  ``ssd_scan`` sums in another order
 than its plain version: y within 1e-4 × max |y| and h within 1e-4 ×
 max |h| in fp32; in bf16, y within 2 bf16 ulps of each element plus
 that fp32 bound (both round an fp32 sum that differs in the last bits).
-Two launches on the same inputs give the same bits.  ``best_response``'s
+Two launches on the same inputs give the same bits.
+``flash_attention`` sums in another order than its plain version: fp32
+within 2e-5 (the reference's ``tests/test_kernels.py`` tolerance), bf16
+within 2 bf16 ulps of each element plus that.  ``best_response``'s
 z is elementwise IEEE fp32 arithmetic in the plain version's order, so
 it equals the plain z bit for bit; its e2 sums in another order: within
 1e-5 relative.
@@ -21,6 +24,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import build, flexa_prox
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd_scan as tssd
@@ -382,3 +386,152 @@ def test_reduced_dense_training_step_on_the_card(cuda):
                          card.state_dict().values()):
         np.testing.assert_allclose(w.cpu().numpy(), v.numpy(), rtol=0,
                                    atol=1e-5, err_msg=k)
+
+
+# ------------------------------------------------------------------ #
+# flash_attention                                                    #
+# ------------------------------------------------------------------ #
+#: (B, Hq, Hkv, Sq, Skv, D, causal): MHA, GQA and MQA; Sq = Skv, the
+#: end-aligned offset Sq < Skv, Sq = 1, ragged Sq and Skv; D 8, 16, 80
+#: (stablelm-3b), 88 (a half 16-column group), 128 (yi-6b); non-causal.
+FA_CASES = [
+    (1, 2, 2, 64, 64, 16, True),
+    (2, 4, 2, 64, 64, 16, True),
+    (1, 8, 1, 128, 128, 64, True),
+    (2, 4, 2, 8, 32, 16, True),
+    (1, 4, 2, 37, 133, 80, True),
+    (2, 4, 1, 1, 29, 128, True),
+    (1, 2, 1, 100, 45, 8, False),
+    (1, 4, 4, 200, 200, 80, False),
+    (2, 8, 2, 130, 300, 128, True),
+    (1, 3, 3, 65, 65, 88, True),
+]
+
+
+def fa_inputs(B, Hq, Hkv, Sq, Skv, D, dtype, seed, device):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((B, Hq, Sq, D), generator=g)
+    k = torch.randn((B, Hkv, Skv, D), generator=g)
+    v = torch.randn((B, Hkv, Skv, D), generator=g)
+    return tuple(t.to(device=device, dtype=dtype) for t in (q, k, v))
+
+
+def assert_fa_close(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    gf, wf = got.float(), want.float()
+    assert torch.isfinite(gf).all()
+    tol = torch.full_like(wf, 2e-5)
+    if got.dtype == torch.bfloat16:
+        tol += 2 * torch.exp2(torch.floor(torch.log2(
+            wf.abs().clamp_min(2.0 ** -126))) - 7)
+    assert bool(((gf - wf).abs() <= tol).all()), float((gf - wf).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FA_CASES, ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_matches_plain_version(cuda, case, dtype):
+    B, Hq, Hkv, Sq, Skv, D, causal = case
+    q, k, v = fa_inputs(B, Hq, Hkv, Sq, Skv, D, getattr(torch, dtype),
+                        seed=Sq + Skv + D, device=cuda)
+    n0 = tfa.flash_attention.launches
+    got = tops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == n0 + 1
+    assert_fa_close(got, tfa.flash_attention.plain(q, k, v, causal=causal))
+    again = tops.flash_attention(q, k, v, causal=causal)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_reads_strided_views(cuda):
+    """q, k, v as the model passes them: heads split out of (B, S, H·D)
+    projections, v never copied; a view with an odd offset is copied
+    first.  Same values as contiguous inputs."""
+    B, S, Hq, Hkv, D = 2, 70, 4, 2, 80
+    g = torch.Generator(device="cpu").manual_seed(5)
+    proj = torch.randn((B, S, (Hq + 2 * Hkv) * D), generator=g).to(cuda)
+    q = proj[..., :Hq * D].reshape(B, S, Hq, D).transpose(1, 2)
+    k = proj[..., Hq * D:(Hq + Hkv) * D].reshape(B, S, Hkv, D).transpose(1, 2)
+    v = proj[..., (Hq + Hkv) * D:].reshape(B, S, Hkv, D).transpose(1, 2)
+    assert tfa._kernel_ready(v) is v               # read where it lies
+    odd = torch.randn((B, S, Hkv * D + 1), generator=g).to(cuda)
+    v_odd = odd[..., 1:].reshape(B, S, Hkv, D).transpose(1, 2)
+    assert tfa._kernel_ready(v_odd) is not v_odd   # 4 bytes off: copied
+    for vv in (v, v_odd):
+        got = tfa.flash_attention(q, k, vv)
+        assert got.transpose(1, 2).is_contiguous()   # (B, S, Hq, D) memory
+        assert_fa_close(got, tfa.flash_attention.plain(q, k, vv))
+        assert torch.equal(got, tfa.flash_attention(
+            q.contiguous(), k.contiguous(), vv.contiguous()))
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_refuses_what_it_cannot_take(cuda):
+    q, k, v = fa_inputs(1, 2, 1, 8, 8, 16, torch.float32, 0, cuda)
+    bad = [
+        ((q.cpu(), k, v), {}, ValueError),                 # a CPU tensor
+        ((q, k, v.cpu()), {}, ValueError),
+        ((q.half(), k.half(), v.half()), {}, TypeError),   # fp16
+        ((q, k.bfloat16(), v), {}, TypeError),             # mixed dtypes
+        ((q[..., :12], k[..., :12], v[..., :12]), {}, ValueError),  # D 12
+        ((q[..., :4], k[..., :4], v[..., :4]), {}, ValueError),     # D 4
+        ((q, k[:, :, :4], v[:, :, :4]), {"causal": True}, ValueError),
+    ]
+    big = torch.zeros((1, 1, 8, 136), device=cuda)                # D 136
+    bad.append(((big, big, big), {}, ValueError))
+    for args, kw, err in bad:
+        with pytest.raises(err):
+            tfa.flash_attention(*args, **kw)
+    with pytest.raises(ValueError):                                # dispatch
+        tops.flash_attention(q, k, v.cpu())
+
+
+@pytest.mark.cuda
+def test_flash_attention_with_failed_build_raises(cuda, monkeypatch,
+                                                  tmp_path):
+    """No fallback: when the kernel cannot be built a CUDA call raises."""
+    monkeypatch.setattr(tfa, "_lib", None)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(build, "find_nvcc", no_nvcc)
+    q, k, v = fa_inputs(1, 2, 1, 8, 8, 16, torch.float32, 0, cuda)
+    n0 = tfa.flash_attention.launches
+    with pytest.raises(RuntimeError):
+        tops.flash_attention(q, k, v)
+    assert tfa.flash_attention.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["stablelm-3b", "yi-6b"])
+def test_reduced_dense_serves_on_the_card_through_the_kernel(cuda, arch):
+    """The reduced dense model on the card (fp32) launches flash_attention
+    once per layer in prefill and agrees with the same model on the CPU
+    (logits and cache within 1e-4: cuBLAS sums in another order)."""
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_reduced(arch).replace(dtype="float32")
+    cpu = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                        device="cpu")
+    card = T.DenseLM(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)).astype(np.int32)
+    n0 = tfa.flash_attention.launches
+    lg, cache = T.prefill(cfg, card, {"tokens": prompts})
+    assert tfa.flash_attention.launches == n0 + cfg.num_layers
+    lg0, cache0 = T.prefill(cfg, cpu, {"tokens": prompts})
+    np.testing.assert_allclose(lg.cpu().numpy(), lg0.numpy(), atol=1e-4)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(cache[name].cpu().numpy(),
+                                   cache0[name].numpy(), atol=1e-4)
+    res = ServeEngine(cfg, card, max_len=48, device=cuda).generate(
+        prompts, max_new_tokens=4)
+    res0 = ServeEngine(cfg, cpu, max_len=48, device="cpu").generate(
+        prompts, max_new_tokens=4)
+    np.testing.assert_array_equal(res.tokens, res0.tokens)
