@@ -111,6 +111,7 @@ VECTOR_K = 65536                   # bucket of the (n, 1) vector gathers
 PADDED_K_VALID = 35926             # active rows in the 65536 bucket on the path
 FP32_OPS_PER_S = 66.9e12            # H100 SXM, CUDA cores, no tensor cores
 TF32_OPS_PER_S = 495e12             # tensor cores, beside it for reference
+BF16_OPS_PER_S = 989e12             # tensor cores, dense bf16 in, fp32 sums
 REPLACES = {"gather_rows": "src/repro/kernels/flexa_prox.py:278",
             "scatter_rows": "src/repro/kernels/flexa_prox.py:308",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:83",
@@ -393,12 +394,25 @@ def ssd_sweep(torch, ssd, dev):
     return err, len(cases) * len(err)
 
 
-def fa_inputs(torch, shape, dtype, seed, dev):
-    """q, k, v of a flash_attention call, N(0, 1) in ``dtype``."""
+def fa_inputs(torch, shape, dtype, seed, dev, model_layout=False):
+    """q, k, v of a flash_attention call, N(0, 1) in ``dtype``.
+
+    With ``model_layout`` they are laid out as the prefill passes them
+    (``attention._qkv``): heads split out of (B, S, H·D) projections, q
+    and k through ``apply_rope`` at positions 0..S−1, v the strided view
+    itself (needs Sq = Skv)."""
     B, Hq, Hkv, Sq, Skv, D, _ = shape
     g = torch.Generator(device=dev).manual_seed(seed)
-    return tuple(torch.randn(s, generator=g, device=dev).to(dtype) for s in
-                 ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D)))
+    if not model_layout:
+        return tuple(torch.randn(s, generator=g, device=dev).to(dtype)
+                     for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D),
+                               (B, Hkv, Skv, D)))
+    from repro_torch.models import layers as L
+    pos = torch.arange(Sq, device=dev).expand(B, Sq)
+    q, k, v = (torch.randn((B, Sq, H * D), generator=g, device=dev).to(dtype)
+               .reshape(B, Sq, H, D).transpose(1, 2)
+               for H in (Hq, Hkv, Hkv))
+    return L.apply_rope(q, pos), L.apply_rope(k, pos), v
 
 
 def fa_sweep(torch, fa, dev):
@@ -411,7 +425,8 @@ def fa_sweep(torch, fa, dev):
     for i, shape in enumerate(cases):
         causal = shape[-1]
         for name in err:
-            q, k, v = fa_inputs(torch, shape, getattr(torch, name), i, dev)
+            q, k, v = fa_inputs(torch, shape, getattr(torch, name), i, dev,
+                                model_layout=i >= len(FA_SWEEP))
             got = fa.flash_attention(q, k, v, causal=causal)
             again = fa.flash_attention(q, k, v, causal=causal)
             check(torch.equal(got, again), f"flash_attention {shape} {name}: "
@@ -1217,34 +1232,43 @@ def kernel_line(torch, fp, ssd, fa, r, launches, serve_launches, err, dev):
 
 
 def fa_work(shape, itemsize):
-    """(FLOPs, bytes) a flash_attention call needs at ``shape``: 4·D per
-    (query, key) pair that the mask keeps (q·k and p·v, a multiply and an
-    add each), pairs counted exactly; q, k, v read once and the output
-    written once."""
+    """(q·kᵀ FLOPs, P·V FLOPs, bytes) of a flash_attention call at
+    ``shape`` with ``itemsize``-byte q, k, v: 2·D each per (query, key)
+    pair that the mask keeps (a multiply and an add per element), pairs
+    counted exactly; q, k, v read once and the output written once."""
     B, Hq, Hkv, Sq, Skv, D, causal = shape
     if causal:
         off = Skv - Sq
         pairs = sum(min(Skv, off + i + 1) for i in range(Sq))
     else:
         pairs = Sq * Skv
-    flops = 4 * B * Hq * D * pairs
+    flops = 2 * B * Hq * D * pairs
     nbytes = itemsize * (2 * B * Hq * Sq * D + 2 * B * Hkv * Skv * D)
-    return flops, nbytes
+    return flops, flops, nbytes
 
 
 def fa_row(torch, fa, launches, err, dev):
     """flash_attention at the stablelm-3b prefill's per-layer shape (4 × 32
     heads × 4096, D 80, bf16, causal) and at yi-6b's (32 heads over 4, D
-    128).  Times from CUDA events around back-to-back eager launches (a
-    launch takes milliseconds).  The library call is
-    ``scaled_dot_product_attention`` on fp32 copies with ``is_causal``
-    (the same fp32 function; timed here only, never on the path)."""
+    128), q, k, v laid out as the prefill passes them.  Times from CUDA
+    events around back-to-back eager launches (a launch takes
+    milliseconds).  The library call is ``scaled_dot_product_attention``
+    on fp32 copies with ``is_causal`` (the same fp32 function; timed here
+    only, never on the path).
+
+    The bound by operations counts each product at the peak for its
+    operands: q·kᵀ multiplies bf16 by bf16 into fp32 sums, which the
+    tensor cores do exactly at the bf16 rate; P·V takes the fp32 p, at
+    the fp32 rate.  The two are summed (``ops_ms``); ``fp32_ops_ms``,
+    both at the fp32 rate, stands beside it."""
     F = torch.nn.functional
     timed = {}
     for key, shape in (("stablelm-3b", FA_STABLELM), ("yi-6b", FA_YI)):
-        q, k, v = fa_inputs(torch, shape, torch.bfloat16, 41, dev)
-        flops, nbytes = fa_work(shape, 2)
-        t_bytes, t_ops = bytes_ms(nbytes), flops / FP32_OPS_PER_S * 1e3
+        q, k, v = fa_inputs(torch, shape, torch.bfloat16, 41, dev,
+                            model_layout=True)
+        qk, pv, nbytes = fa_work(shape, 2)
+        t_qk, t_pv = qk / BF16_OPS_PER_S * 1e3, pv / FP32_OPS_PER_S * 1e3
+        t_bytes, t_ops = bytes_ms(nbytes), t_qk + t_pv
         rep = shape[1] // shape[2]
         qf = q.float()
         kf = k.float().repeat_interleave(rep, dim=1)
@@ -1257,8 +1281,9 @@ def fa_row(torch, fa, launches, err, dev):
                 q, k, v), reps=3),
             "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                 qf, kf, vf, is_causal=True), reps=10),
-            "flops": flops, "bytes": nbytes,
-            "bytes_ms": t_bytes, "fp32_ops_ms": t_ops,
+            "qk_flops": qk, "pv_flops": pv, "bytes": nbytes,
+            "bytes_ms": t_bytes, "qk_bf16_ms": t_qk, "pv_fp32_ms": t_pv,
+            "ops_ms": t_ops, "fp32_ops_ms": (qk + pv) / FP32_OPS_PER_S * 1e3,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         del q, k, v, qf, kf, vf
@@ -1273,7 +1298,8 @@ def fa_row(torch, fa, launches, err, dev):
             "library_ms": round(t["library_ms"], 5),
             "shape": "q, k, v (4, 32, 4096, 80) bf16, causal (stablelm-3b "
                      "prefill, one layer)",
-            "peak": "fp32 66.9 TFLOP/s (CUDA cores)",
+            "peak": "q·kᵀ bf16 989 TFLOP/s (tensor cores) + P·V fp32 "
+                    "66.9 TFLOP/s (CUDA cores)",
             "timed": {kk: {a: (round(b, 5) if isinstance(b, float) else b)
                            for a, b in vv.items()}
                       for kk, vv in timed.items()}}

@@ -17,11 +17,14 @@
 // the TPU kernel it also masks key positions past Skv in a ragged last
 // tile (as chunked_attention does), and Sq need not be a tile multiple.
 //
-// What bounds it on an H100: operations.  Per (b, h) the two products take
-// 2 * Sq * Skv * D multiply-adds (half of that when causal), against
-// (Sq + 2 Skv) * D values read and Sq * D written: at stablelm-3b's prefill
-// (4 x 32 heads, 4096 x 4096, D = 80, causal) 3.4e11 flops, 5.1 ms at the
-// 66.9 TFLOP/s fp32 rate of the CUDA cores, against 0.2 ms for its bytes.
+// What bounds it on an H100: operations.  Per (b, h) each of the two
+// products takes Sq * Skv * D multiply-adds (about half of that when
+// causal), against (Sq + 2 Skv) * D values read and Sq * D written.  At
+// stablelm-3b's prefill (4 x 32 heads, 4096 x 4096, D = 80, causal, bf16)
+// each is 1.7e11 flops.  q.k^T multiplies bf16 operands into fp32 sums,
+// which the tensor cores do exactly at 989 TFLOP/s: 0.17 ms.  P.V takes
+// the fp32 p, so it runs at the CUDA cores' 66.9 TFLOP/s: 2.57 ms.  The
+// bound is their sum, 2.74 ms, against 0.1 ms for the bytes.
 //
 // What this first kernel does about it (fp32 FMAs on the CUDA cores; the
 // tensor cores, wgmma and TMA are later work):

@@ -109,10 +109,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     interface: the CUDA kernel chooses its own tiles.
     """
     _on(q.device, k, v)
-    _fa.check_shapes(q, k, v, causal)
     if q.device.type == "cpu":
+        _fa.check_shapes(q, k, v, causal)
         return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
-    if q.device.type == "cuda":
+    if q.device.type == "cuda":                 # the wrapper checks shapes
         return _fa.flash_attention(q, k, v, causal=causal, scale=scale)
     raise ValueError(f"no flash_attention kernel for device {q.device}")
 

@@ -218,8 +218,9 @@ def attention_decode(p: AttnParams, x: torch.Tensor, cache_k: torch.Tensor,
 
     x (B, 1, d); cache_k, cache_v (B, Hkv, S, dh) with ``pos`` valid
     entries.  Writes the new token's k and v at index ``pos`` **in
-    place** (the reference returns updated copies) and attends to
-    [0, pos].  Returns (out, cache_k, cache_v).
+    place** and attends to [0, pos].  Returns out (B, 1, d) alone: the
+    reference returns updated copies of the cache beside it, which here
+    would be the caller's own tensors.
     """
     B, pos = x.shape[0], int(pos)
     posn = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
@@ -228,4 +229,4 @@ def attention_decode(p: AttnParams, x: torch.Tensor, cache_k: torch.Tensor,
     cache_k[:, :, pos] = k[:, :, 0].to(cache_k.dtype)
     cache_v[:, :, pos] = v[:, :, 0].to(cache_v.dtype)
     out = decode_attention(q, cache_k, cache_v, pos + 1)
-    return _merge_heads(out) @ weight("wo"), cache_k, cache_v
+    return _merge_heads(out) @ weight("wo")

@@ -413,8 +413,8 @@ def decode_step(cfg: ModelConfig, model: nn.Module, token, cache: dict,
     for li, blk in enumerate(model.layers):
         h = L.rms_norm(x, blk.ln1, cfg.norm_eps)
         if cfg.family == "dense":
-            a, _, _ = ATT.attention_decode(blk.attn, h, cache["k"][li],
-                                           cache["v"][li], pos, cfg)
+            a = ATT.attention_decode(blk.attn, h, cache["k"][li],
+                                     cache["v"][li], pos, cfg)
             x = x + a
             x = x + _serve_mlp(blk, x, cfg)
             continue
