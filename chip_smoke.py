@@ -26,15 +26,41 @@ each failing the run when its check fails:
 4. solo     — the paper's fig1d Lasso (m=5000, n=100000, 5% nnz) through
                ``FlexaClient().run(SoloSpec(...))``, methods ``flexa`` and
                ``flexa_compiled``, 1000 iterations each; ms per iteration
-               beside the two-GEMV bound.
+               beside the two-GEMV bound.  ``batched_best_response`` (step
+               S.2) launched once per iteration (1000 per method, by
+               counter); one fig1d iteration's z and x_new from the
+               kernels equal their plain versions' bit for bit.
 5. path     — slice 1's main path: ``FlexaClient().run(PathSpec(...,
                compact=True))`` at fig1d, with the kernels' launch
-               counters set to 0 just before and read just after (both
+               counters set to 0 just before and read just after (all
                must be > 0), under ``torch.profiler``, whose kernel
                records give each kernel's launches (they must equal the
-               counters) and device time.
+               counters) and device time; ``batched_best_response``
+               launched once per solver iteration (between the
+               iterations' sum and that plus 15 per solve: a solve stops
+               at the stop-flag check after it converges).
 6. compact  — the compacted path against the masked-dense path at fig1b
                (m=2000, n=10000, 10% nnz) on the golden grid.
+6b. batch   — slice 5's batched path (``benchmarks/fig1.py:run_batched``
+               at fig1d's size): ``FlexaClient().run(BatchSpec(...))`` over
+               8 fig1d instances (seeds 0–7, 16 GB of A stacked), 300
+               iterations at fixed τ, greedy then Jacobi; the Jacobi run
+               launches ``batched_apply_update`` once per iteration (300,
+               by counter and by profiler), both ``batched_best_response``
+               300; against a ``SoloSpec`` of seed 0 under the same
+               settings row 0's x within 1e-4 under Jacobi and its V
+               within 1e-3 under greedy (the ρ-rule's mask flips on
+               last-bit differences, so greedy trajectories part); every
+               V finite and V₃₀₀ < V₀; ms per batched iteration beside
+               the two-GEMV bound, peak memory.
+6c. cv      — ``FlexaClient().run(CVSpec(...))``: K = 4 row-folds of a
+               planted sparse regression (m_total 8000, n 10000, support
+               500, ``benchmarks/path_bench.py:make_cv_folds``), 16
+               λ-points down to 0.05 λ_max at tol 1e-6: every point
+               converged, fold 0's path within 1e-4 of a ``PathSpec`` of
+               fold 0 on the same grid, the selected λ index equal to the
+               one recomputed on the host from the fold x's by the
+               validation MSE.
 7. serve    — slice 2's main path: full-width mamba2-1.3b (48 layers,
                random weights from a seeded generator) through
                ``ServeEngine.generate``, 4 prompts of 4096 tokens and 32
@@ -64,9 +90,12 @@ each failing the run when its check fails:
                launched once per parameter tensor per step (291), by
                counter and by profiler; every loss finite; per-step ms,
                tokens/s, peak memory, the device busy share of a profiled
-               step.  Before it, on step 1's x and gradients, every
-               tensor's kernel z equals its plain version bit for bit and
-               e2 agrees within 1e-5 relative.
+               step; ``apply_update`` launched once per parameter tensor
+               per step as well (291), by counter and by profiler.  Before
+               it, on step 1's x and gradients, every tensor's kernel z
+               equals its plain version bit for bit and e2 agrees within
+               1e-5 relative, and the kernel's updated x equals the plain
+               update's bit for bit.
 10. descent — reduced stablelm-3b on the card, 30 FLEXA steps at batch
                4 × 64: the mean of the last 5 losses is below the mean of
                the first 5 (the reference's own check,
@@ -82,7 +111,12 @@ within 1e-5 relative, and a second launch give the same bits.  And
 ragged Skv (4133), and the stablelm-3b and yi-6b prefills at full size
 (4 × 4096); fp32 within 2e-5 and bf16 within 2 bf16 ulps per element
 plus 2e-5, finite, a second launch bitwise, and a causal call with
-Sq > Skv refused.
+Sq > Skv refused.  And ``apply_update``, ``batched_best_response`` and
+``batched_apply_update``: sizes 1, 1000, (8, 100000), (50304, 2560) and a
+misaligned view; scalar, per-instance and dense d; c 0, a host value and
+per instance; γ·m 0, 1, 0.9 and per instance; fp32 and bf16 x: outputs
+bitwise equal to the plain versions', e2 within 1e-5 relative, a second
+launch bitwise.
 
 Then a ``{"kernels": [...]}`` line (device time, plain time, library
 time and bound of each kernel at its path's shapes), the card's name and
@@ -116,18 +150,22 @@ REPLACES = {"gather_rows": "src/repro/kernels/flexa_prox.py:278",
             "scatter_rows": "src/repro/kernels/flexa_prox.py:308",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:83",
             "best_response": "src/repro/kernels/flexa_prox.py:55",
+            "apply_update": "src/repro/kernels/flexa_prox.py:104",
+            "batched_best_response": "src/repro/kernels/flexa_prox.py:174",
+            "batched_apply_update": "src/repro/kernels/flexa_prox.py:223",
             "flash_attention": "src/repro/kernels/flash_attention.py:86"}
+FLEXA_CU = "src/repro_torch/kernels/csrc/flexa_prox.cu"
 SOURCES = {"gather_rows": "src/repro_torch/kernels/csrc/compact_rows.cu",
            "scatter_rows": "src/repro_torch/kernels/csrc/compact_rows.cu",
            "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
-           "best_response": "src/repro_torch/kernels/csrc/flexa_prox.cu",
+           "best_response": FLEXA_CU, "apply_update": FLEXA_CU,
+           "batched_best_response": FLEXA_CU,
+           "batched_apply_update": FLEXA_CU,
            "flash_attention":
                "src/repro_torch/kernels/csrc/flash_attention.cu"}
-#: Device-kernel names (substrings of the profiler's records) per wrapper.
-KERNEL_NAMES = {"gather_rows": ("gather_wide", "gather_narrow"),
-                "scatter_rows": ("scatter_narrow",),
-                "ssd_scan": ("ssd_scan_chunked",),
-                "best_response": ("flexa_best_response_kernel",),
+#: Device-kernel names (substrings of the profiler's records) per wrapper;
+#: ``main`` adds those of ``flexa_prox``'s wrappers (its KERNEL_NAMES).
+KERNEL_NAMES = {"ssd_scan": ("ssd_scan_chunked",),
                 "flash_attention": ("flash_attention_fwd",)}
 SERVE = dict(arch="mamba2-1.3b", batch=4, prompt=4096, new=32, seed=0)
 SERVE_DENSE = dict(arch="stablelm-3b", batch=4, prompt=4096, new=32, seed=0)
@@ -138,6 +176,19 @@ DESCENT = dict(arch="stablelm-3b", batch=4, seq=64, steps=30)
 #: of stablelm-3b (attn 2560², mlp 2560 × 6912) and its lm_head.
 BR_SHAPES = [(1,), (1000,), (2560, 2560), (2560, 6912), (50304, 2560)]
 BR_MISALIGNED = (1_000_001,)       # a view one element into its storage
+#: Shapes of the apply_update sweep (the misaligned view added as above)
+#: and (B, n) of the batched sweep: 1, ragged 1000, the batch phase's
+#: bucket, lm_head's elements in two instances, and rows of 1001 from a
+#: view one element into its storage (the scalar loop).
+UPD_SHAPES = [(1,), (1000,), (8, 100_000), (50304, 2560)]
+BATCHED_SHAPES = [(1, 1), (1, 1000), (8, 100_000), (2, 50304 * 1280)]
+BATCHED_MISALIGNED = (3, 1001)
+#: The batch phase: B fig1d instances (seeds 0..B−1), generated on this
+#: many host threads; each holds ≈ 10 GB of host memory while it runs.
+BATCH = dict(B=8, iters=300, gen_threads=4)
+#: The cv phase (``benchmarks/path_bench.py:run_cv`` at fig1b's width).
+CV = dict(m_total=8000, n=10_000, support=500, K=4, P=16, ratio=0.05,
+          seed=0, tol=1e-6)
 #: (Bt, S, H, P, N, chunk) of the ssd_scan sweep: reduced, full width.
 SSD_REDUCED = (2, 64, 3, 16, 8, 16)
 SSD_FULL = [(1, 256, 64, 64, 128, 256), (4, 4096, 64, 64, 128, 256),
@@ -520,11 +571,129 @@ def phase_kernels(torch, fp, ssd, fa, dev):
     err["best_response"] = br_z_err
     fa_err, n_fa = fa_sweep(torch, fa, dev)
     err["flash_attention"] = max(fa_err.values())
+    upd_err, upd_cases = upd_sweep(torch, fp, dev)
+    bat_err, bat_e2_rel, bat_cases = batched_sweep(torch, fp, dev)
+    err["apply_update"] = upd_err
+    err.update(bat_err)
     say("kernels", max_abs_err=err, gather_ms=times, ssd_scan_cases=n_ssd,
         ssd_scan_max_abs_err_y_h=ssd_err, best_response_cases=n_br,
         best_response_max_e2_rel_err=br_e2_rel, flash_attention_cases=n_fa,
-        flash_attention_max_abs_err=fa_err)
+        flash_attention_max_abs_err=fa_err, apply_update_cases=upd_cases,
+        batched_cases=bat_cases, batched_best_response_max_e2_rel_err=(
+            bat_e2_rel))
     return err
+
+
+def equal_or_fail(torch, name, got, want, what):
+    """``got`` bitwise equal to ``want`` (dtype, shape and bits); returns
+    max |got − want| (0.0)."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{name} {what}: {got.dtype}{tuple(got.shape)} vs "
+          f"{want.dtype}{tuple(want.shape)}")
+    e = float((got.float() - want.float()).abs().max()) if got.numel() \
+        else 0.0
+    check(torch.equal(got, want), f"{name} {what}: differs from its plain "
+          f"version (max abs err {e})")
+    return e
+
+
+def upd_sweep(torch, fp, dev):
+    """apply_update against its plain version: out bitwise, in place as
+    the optimizer calls it too, a second launch bitwise."""
+    cases = [(shape, 0) for shape in UPD_SHAPES] + [(BR_MISALIGNED, 1)]
+    err, n = 0.0, 0
+    for i, (shape, offset) in enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            for dense in (False, True):
+                x, g, d = br_inputs(torch, shape, dtype, dense, seed=50 + i,
+                                    dev=dev, offset=offset)
+                for c, gm in ((0.0, 0.9), (1e-3, 1.0), (1e-3, 0.0)):
+                    gmt = torch.tensor(gm, device=dev)
+                    what = (f"{shape}+{offset} {dtype} dense={dense} c={c} "
+                            f"gm={gm}")
+                    got = fp.apply_update(x, g, d, c, gmt)
+                    want = fp.apply_update.plain(x, g, d, c, gmt)
+                    err = max(err, equal_or_fail(torch, "apply_update", got,
+                                                 want, what))
+                    equal_or_fail(torch, "apply_update", fp.apply_update(
+                        x, g, d, c, gmt), got, what + " (second launch)")
+                    x2 = x.clone()
+                    fp.apply_update(x2, g, d, c, gmt, out=x2)
+                    equal_or_fail(torch, "apply_update", x2, want,
+                                  what + " (in place)")
+                    n += 1
+                    del got, want, x2
+                del x, g, d
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return err, n
+
+
+def batched_inputs(torch, B, n, dtype, dkind, ckind, seed, dev, offset=0):
+    """x, g ((B, n), views ``offset`` elements into their storage), d ((),
+    (B,) or (B, n)), c (0.0, a host float or (B,)) of a batched call."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(B * n + offset, generator=gen, device=dev).to(dtype)
+    g = (0.1 * torch.randn(B * n + offset, generator=gen, device=dev)
+         ).to(dtype)
+    x, g = x[offset:].view(B, n), g[offset:].view(B, n)
+    d = {"scalar": lambda: torch.tensor(1.7, device=dev),
+         "instance": lambda: torch.rand(B, generator=gen, device=dev) * 1.5
+         + 0.5,
+         "dense": lambda: torch.rand((B, n), generator=gen, device=dev)
+         * 1.5 + 0.5}[dkind]()
+    c = {"zero": 0.0, "host": 0.05,
+         "instance": torch.rand(B, generator=gen, device=dev) * 0.1}[ckind]
+    return x, g, d, c
+
+
+def batched_sweep(torch, fp, dev):
+    """batched_best_response and batched_apply_update against their plain
+    versions: z and the update bitwise, e2 within 1e-5 relative, a second
+    launch bitwise."""
+    cases = [(bn, 0) for bn in BATCHED_SHAPES] + [(BATCHED_MISALIGNED, 1)]
+    err = {"batched_best_response": 0.0, "batched_apply_update": 0.0}
+    rel_max, n = 0.0, 0
+    gms = (0.9, 1.0, 0.0, "instance")
+    for i, ((B, nn), offset) in enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            for dkind in ("scalar", "instance", "dense"):
+                for ckind in ("zero", "host", "instance"):
+                    x, g, d, c = batched_inputs(torch, B, nn, dtype, dkind,
+                                                ckind, 60 + i, dev, offset)
+                    gm_kind = gms[n % len(gms)]
+                    gm = torch.rand(B, device=dev) if gm_kind == "instance" \
+                        else torch.tensor(gm_kind, device=dev)
+                    what = (f"({B}, {nn})+{offset} {dtype} d={dkind} "
+                            f"c={ckind} gm={gm_kind}")
+                    z, e2 = fp.batched_best_response(x, g, d, c)
+                    z0, e0 = fp.batched_best_response.plain(x, g, d, c)
+                    err["batched_best_response"] = max(
+                        err["batched_best_response"], equal_or_fail(
+                            torch, "batched_best_response", z, z0, what))
+                    rel = float(((e2 - e0).abs() / e0.abs().clamp_min(
+                        1e-30)).max())
+                    check(rel <= 1e-5, f"batched_best_response {what}: e2 "
+                          f"rel err {rel}")
+                    rel_max = max(rel_max, rel)
+                    z2, e22 = fp.batched_best_response(x, g, d, c)
+                    check(torch.equal(z2, z) and torch.equal(e22, e2),
+                          f"batched_best_response {what}: a second launch "
+                          "gave other bits")
+                    o = fp.batched_apply_update(x, g, d, c, gm)
+                    err["batched_apply_update"] = max(
+                        err["batched_apply_update"], equal_or_fail(
+                            torch, "batched_apply_update", o,
+                            fp.batched_apply_update.plain(x, g, d, c, gm),
+                            what))
+                    equal_or_fail(torch, "batched_apply_update",
+                                  fp.batched_apply_update(x, g, d, c, gm),
+                                  o, what + " (second launch)")
+                    n += 1
+                    del x, g, d, c, z, z0, z2, o
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return err, rel_max, n
 
 
 def br_inputs(torch, shape, dtype, dense, seed, dev, offset=0):
@@ -617,10 +786,10 @@ def phase_goldens(torch, dev):
             "device_flops"])
 
 
-def phase_solo(torch, dev):
+def phase_solo(torch, fp, dev):
     from repro_torch.client import FlexaClient, SoloSpec
     from repro_torch.config.base import SolverConfig
-    from repro_torch.core import flexa
+    from repro_torch.core import flexa, surrogate
     from repro_torch.problems.lasso import nesterov_instance
 
     t0 = time.perf_counter()
@@ -635,6 +804,8 @@ def phase_solo(torch, dev):
 
     gemv_ms = graph_ms(torch, two_gemv)
     bound_ms = bytes_ms(2 * A.numel() * 4)
+    # V(x_new) = ‖A x_new − b‖² is a third pass over A each iteration
+    v_ms = graph_ms(torch, lambda: p.v(x))
     # Device time of one iteration (captured in a CUDA graph): what the
     # card spends when the host is not in the way.
     cfg = SolverConfig(max_iters=SOLO_ITERS, tol=-1.0)
@@ -645,13 +816,17 @@ def phase_solo(torch, dev):
     client = FlexaClient(solver=cfg)
     v0 = float(p.v(x))
     out, xs = {}, {}
+    br = fp.batched_best_response
     for method in ("flexa", "flexa_compiled"):
         torch.cuda.synchronize()
+        br.launches = 0
         t = time.perf_counter()
         r = client.run(SoloSpec(problem=p, method=method))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         check(r.iters == SOLO_ITERS and r.x.shape == (p.n,), method)
+        check(br.launches == SOLO_ITERS, f"{method}: batched_best_response "
+              f"launched {br.launches} times in {SOLO_ITERS} iterations")
         v = float(p.v(torch.as_tensor(r.x, device=dev)))
         check(math.isfinite(v), f"{method}: V {v} (V at x=0: {v0})")
         xs[method] = r.x
@@ -659,9 +834,25 @@ def phase_solo(torch, dev):
                        "V_rel_err": (v - p.v_star) / p.v_star}
     dx = float(abs(xs["flexa"] - xs["flexa_compiled"]).max())
     check(dx <= 1e-5, f"flexa vs flexa_compiled: max |dx| {dx}")
+    # one fig1d iteration's S.2 and S.4 (full rule) at the solve's x:
+    # kernels against plain versions, and the chain through the kernel
+    x1 = torch.as_tensor(xs["flexa"], device=dev)
+    g1 = p.grad_f(x1)
+    d1 = surrogate.curvature(p, tau, cfg.surrogate)
+    rows = (x1[None], g1[None], d1[None], p.g_weight)
+    z, _ = fp.batched_best_response(*rows)
+    equal_or_fail(torch, "batched_best_response", z,
+                  fp.batched_best_response.plain(*rows)[0], "fig1d iteration")
+    equal_or_fail(torch, "batched_best_response", surrogate.best_response(
+        p, x1, g1, d1)[None], z, "fig1d iteration, through the chain")
+    xn = fp.batched_apply_update(*rows, state.gamma)
+    equal_or_fail(torch, "batched_apply_update", xn,
+                  fp.batched_apply_update.plain(*rows, state.gamma),
+                  "fig1d iteration")
     say("solo", instance="fig1d", gen_s=round(gen_s, 2),
         two_gemv_ms=round(gemv_ms, 4), two_gemv_bound_ms=round(bound_ms, 4),
-        iter_device_ms=round(iter_device_ms, 4),
+        v_eval_ms=round(v_ms, 4), iter_device_ms=round(iter_device_ms, 4),
+        batched_best_response_launches_per_method=SOLO_ITERS,
         max_dx_methods=dx, **out)
     return p
 
@@ -678,10 +869,11 @@ def phase_path(torch, fp, p):
     from repro_torch.problems.families import get_family
 
     gather, scatter = fp.gather_rows, fp.scatter_rows
+    br = fp.batched_best_response
     client = FlexaClient(solver=SolverConfig(tol=1e-6, max_iters=20000))
     spec = PathSpec(problem=p, n_points=10, lam_min_ratio=0.1, compact=True)
     tracer = obs.Tracer()
-    gather.launches = scatter.launches = 0
+    gather.launches = scatter.launches = br.launches = 0
     torch.cuda.synchronize()
     with profiled(torch) as prof:
         t = time.perf_counter()
@@ -690,18 +882,28 @@ def phase_path(torch, fp, p):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     launches = {"gather_rows": gather.launches,
-                "scatter_rows": scatter.launches}
+                "scatter_rows": scatter.launches,
+                "batched_best_response": br.launches}
     t = time.perf_counter()
     per_kernel, busy = device_kernels(torch, prof, {
         k: KERNEL_NAMES[k] for k in launches})
     read_s = time.perf_counter() - t
     del prof
-    check(launches["gather_rows"] > 0 and launches["scatter_rows"] > 0,
+    check(all(n > 0 for n in launches.values()),
           f"kernel not launched on the path: {launches}")
     check(all(per_kernel[k][0] == n for k, n in launches.items()),
           f"profiler launches {per_kernel} differ from the counters "
           f"{launches}")
     check(bool(r.converged.all()), f"path not converged: {r.converged}")
+    # one S.2 per solver iteration: every solve (one per KKT round of each
+    # point the path solved) runs its iterations and at most 15 more
+    # before the stop-flag check that ends it
+    solves = sum(rep.kkt_rounds + 1 for rep, it in zip(r.screened, r.iters)
+                 if it > 0)
+    check(r.row_iters <= launches["batched_best_response"]
+          <= r.row_iters + 15 * solves,
+          f"batched_best_response launched {launches['batched_best_response']}"
+          f" times for {r.row_iters} iterations in {solves} solves")
     check(bool((r.x[0] == 0).all()) and r.support[-1] > 0, "path support")
     fam = get_family("lasso")
     kkt = 0.0
@@ -728,7 +930,7 @@ def phase_path(torch, fp, p):
         device_flops=r.device_flops,
         # every iteration reads its (m × width) matrix twice, fp32
         gemv_bound_s=round(bytes_ms(8 * r.device_flops) / 1e3, 3),
-        launches=launches,
+        launches=launches, solves=solves, row_iters=r.row_iters,
         # per kernel, from the profiler: [launches, device ms]
         profiler_kernels={k: [n, round(ms, 4)]
                           for k, (n, ms) in per_kernel.items()},
@@ -775,6 +977,187 @@ def phase_compact_vs_dense(torch, dev):
         supports_equal=bool((c.support == d.support).all()),
         flops_ratio=d.device_flops / c.device_flops,
         compact_s=secs[True], dense_s=secs[False])
+
+
+def phase_batch(torch, fp, dev):
+    """``benchmarks/fig1.py:run_batched`` at fig1d's size: B fig1d
+    instances through ``BatchSpec``, greedy then Jacobi, against a
+    ``SoloSpec`` of seed 0 under the same settings.
+
+    τ is fixed (``tau_adapt=False``, as run_batched runs, so batched and
+    solo take the same steps) at τ⁰ = max L_F / 2 over the instances: at
+    the default τ⁰ = tr(AᵀA)/2n with τ fixed both rules diverge on these
+    instances (V over 1e27, Jacobi to NaN, in 300 iterations at a tenth
+    of fig1d's size on the CPU)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.client import BatchSpec, FlexaClient, SoloSpec
+    from repro_torch.config.base import SolverConfig
+    from repro_torch.problems.lasso import nesterov_instance
+
+    B, iters = BATCH["B"], BATCH["iters"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with ThreadPoolExecutor(BATCH["gen_threads"]) as ex:
+        probs = list(ex.map(lambda s: nesterov_instance(
+            **{**FIG1D, "seed": s}, device=dev), range(B)))
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    print(f"batch: {B} instances generated in {gen_s:.2f} s", flush=True)
+    tau0 = max(p.lipschitz for p in probs) / 2
+    v0 = [float(p.v(torch.zeros(p.n, device=dev))) for p in probs]
+    br, ap = fp.batched_best_response, fp.batched_apply_update
+    m, n = FIG1D["m"], FIG1D["n"]
+    out = {}
+    for rule in ("greedy", "jacobi"):
+        cfg = SolverConfig(max_iters=iters, tol=-1.0, tau_adapt=False,
+                           tau0=tau0, jacobi=rule == "jacobi")
+        client = FlexaClient(solver=cfg)
+        spec = BatchSpec(problems=probs)
+        br.launches = ap.launches = 0
+        with (profiled(torch) if rule == "jacobi"
+              else contextlib.nullcontext()) as prof:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rb = client.run(spec)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        if rule == "jacobi":
+            per_kernel, busy = device_kernels(torch, prof, {
+                k: KERNEL_NAMES[k] for k in ("batched_best_response",
+                                             "batched_apply_update")})
+            del prof
+        launches = {"batched_best_response": br.launches,
+                    "batched_apply_update": ap.launches}
+        want = {"batched_best_response": iters,
+                "batched_apply_update": iters if rule == "jacobi" else 0}
+        check(launches == want, f"batch {rule}: launches {launches}, want "
+              f"{want}")
+        if rule == "jacobi":
+            check(all(per_kernel[k][0] == want[k] for k in want),
+                  f"batch {rule}: profiler launches {per_kernel}, counters "
+                  f"{launches}")
+        check(rb.x.shape == (B, n) and bool((rb.iters == iters).all()),
+              f"batch {rule}: x {rb.x.shape}, iters {rb.iters}")
+        V = [float(p.v(torch.as_tensor(rb.x[i], device=dev)))
+             for i, p in enumerate(probs)]
+        solo = client.run(SoloSpec(problem=probs[0], method="flexa"))
+        v_solo = float(probs[0].v(torch.as_tensor(solo.x, device=dev)))
+        dx = float(abs(solo.x - rb.x[0]).max())
+        out[rule] = {"wall_s": round(wall, 3),
+                     "ms_per_iter": wall / iters * 1e3,
+                     "launches": launches, "V": V, "V0": v0,
+                     "V_rel_err": [(v - p.v_star) / p.v_star
+                                   for v, p in zip(V, probs)],
+                     "row0_vs_solo_max_dx": dx, "V_solo": v_solo,
+                     "row0_vs_solo_V_rel": abs(V[0] - v_solo) / v_solo}
+        if rule == "jacobi":
+            out[rule]["profiler_kernels"] = {
+                k: [c, round(ms, 4)] for k, (c, ms) in per_kernel.items()}
+            out[rule]["device_busy_share"] = busy[1] / (wall * 1e3)
+        print(f"batch {rule}: " + json.dumps(out[rule]), flush=True)
+    for rule, o in out.items():
+        check(all(math.isfinite(v) and v < v_0 for v, v_0 in zip(o["V"],
+                                                                   v0)),
+              f"batch {rule}: V {o['V']}, V at x = 0 {v0}")
+    # Jacobi's iteration has no branch, so row 0 follows the solo
+    # trajectory up to fp32 summation order.  The greedy ρ-rule compares
+    # E against ρ·max E, and the batched and the solo products sum in
+    # another order, so a coordinate whose E lies within rounding of the
+    # threshold is selected in one run and not in the other, and the
+    # trajectories part (max |dx| 0.0102 after 300 iterations on the
+    # H100); there row 0 must reach the solo run's V within 1e-3.
+    check(out["jacobi"]["row0_vs_solo_max_dx"] <= 1e-4, f"batch jacobi: row "
+          f"0 vs SoloSpec max |dx| {out['jacobi']['row0_vs_solo_max_dx']}")
+    check(out["greedy"]["row0_vs_solo_V_rel"] <= 1e-3, f"batch greedy: row "
+          f"0 vs SoloSpec V rel {out['greedy']['row0_vs_solo_V_rel']}")
+    del probs, rb, solo
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    say("batch", instances=B, instance=f"fig1d seeds 0..{B - 1}",
+        gen_s=round(gen_s, 2), gen_threads=BATCH["gen_threads"],
+        iters=iters, tau0=tau0, peak_memory_gib=round(peak / 2 ** 30, 3),
+        # each iteration reads the (B, m, n) stack twice for ∇F (and once
+        # more for V)
+        two_gemv_bound_ms=bytes_ms(2 * B * m * n * 4),
+        three_gemv_bound_ms=bytes_ms(3 * B * m * n * 4), **out)
+    return out["jacobi"]["launches"]["batched_apply_update"]
+
+
+def make_cv_folds(m_total, n, s, K, seed, noise=0.5):
+    """Planted sparse regression split into K row-folds: a copy of
+    ``benchmarks/path_bench.py:make_cv_folds`` (that module imports the
+    JAX package)."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((m_total, n)).astype(np.float32)
+    x_true = np.zeros(n, np.float32)
+    sup = rng.choice(n, size=s, replace=False)
+    x_true[sup] = rng.uniform(0.5, 1.5, s) * rng.choice([-1, 1], s)
+    b = A @ x_true + noise * rng.standard_normal(m_total).astype(
+        np.float32)
+    idx = rng.permutation(m_total)[:K * (m_total // K)]
+    out = []
+    for f in np.array_split(idx, K):
+        val = np.zeros(m_total, bool)
+        val[f] = True
+        out.append((A[~val], b[~val], A[val], b[val]))
+    return out, x_true
+
+
+def phase_cv(torch, fp, dev):
+    """K-fold CV through ``CVSpec``, as ``benchmarks/path_bench.py:run_cv``
+    builds it, at fig1b's width; fold 0 against a ``PathSpec`` of fold 0
+    on the same grid, the selection recomputed on the host."""
+    from repro_torch.client import CVSpec, FlexaClient, PathSpec
+    from repro_torch.config.base import SolverConfig
+    from repro_torch.problems.lasso import make_lasso
+
+    t = time.perf_counter()
+    folds, _ = make_cv_folds(CV["m_total"], CV["n"], CV["support"],
+                             CV["K"], CV["seed"])
+    probs = [make_lasso(A, b, c=1.0, name=f"cv_fold{i}", device=dev)
+             for i, (A, b, _, _) in enumerate(folds)]
+    validation = [(Av, bv) for (_, _, Av, bv) in folds]
+    gen_s = time.perf_counter() - t
+    client = FlexaClient(solver=SolverConfig(tol=CV["tol"], max_iters=20000,
+                                             tau_adapt=False))
+    br = fp.batched_best_response
+    br.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cv = client.run(CVSpec(problems=probs, validation=validation,
+                           n_points=CV["P"], lam_min_ratio=CV["ratio"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = br.launches
+    check(all(bool(f.converged.all()) for f in cv.folds),
+          f"cv: not converged {[f.converged.tolist() for f in cv.folds]}")
+    sweep_rows = cv.folds[0].meta["sweep_row_iters"]
+    check(launches > 0, "cv: batched_best_response not launched")
+    t = time.perf_counter()
+    p0 = client.run(PathSpec(problem=probs[0], lambdas=cv.lambdas))
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t
+    dx = float(abs(p0.x - cv.folds[0].x).max())
+    check(dx <= 1e-4, f"cv: fold 0 vs PathSpec max |dx| {dx}")
+    mse = np.array([[float(np.mean((Av.astype(np.float64)
+                                    @ f.x[k].astype(np.float64) - bv) ** 2))
+                     for k in range(CV["P"])]
+                    for f, (Av, bv) in zip(cv.folds, validation)])
+    best = int(np.argmin(mse.mean(axis=0)))
+    check(best == cv.best_index, f"cv: selected λ index {cv.best_index}, "
+          f"recomputed on the host {best}")
+    say("cv", folds=CV["K"], m_total=CV["m_total"], n=CV["n"],
+        support=CV["support"], points=CV["P"], gen_s=round(gen_s, 2),
+        wall_s=round(wall, 3), fold0_path_s=round(path_s, 3),
+        sweep_row_iters=sweep_rows, batched_best_response_launches=launches,
+        iters=[f.iters.tolist() for f in cv.folds],
+        supports=[f.support.tolist() for f in cv.folds],
+        best_index=cv.best_index, best_lambda=cv.best_lambda,
+        val_mse_mean=[round(float(v), 5) for v in cv.scores_mean],
+        fold0_vs_path_max_dx=dx)
+    del probs, folds, cv, p0
+    torch.cuda.empty_cache()
 
 
 def serve_run(torch, spec, wrapper, kname, dev, profile=True):
@@ -932,8 +1315,9 @@ def step1_check(torch, fp, kops, T, loop, cfg):
     """Step 1's best responses through ``br_compare`` (kernel against plain
     version, and a second launch bitwise): the gradients of the first batch
     at the initial weights, every tensor of every leaf with the optimizer's
-    τᵢ and c.  Returns (tensors checked,
-    max e2 rel err over tensors, max e2 rel err over leaves)."""
+    τᵢ and c; and each tensor's update x + γ·(z − x) (the mask's 1), the
+    kernel's bitwise equal to the plain version's.  Returns (tensors
+    checked, max e2 rel err over tensors, max e2 rel err over leaves)."""
     from repro_torch.core.optimizer import _l1_mask
 
     model, opt, _ = loop.init_state()
@@ -948,11 +1332,14 @@ def step1_check(torch, fp, kops, T, loop, cfg):
                                        and _l1_mask(leaf.path)) else 0.0
             e_k = e_p = 0.0
             for j, x in enumerate(leaf.tensors):
+                what = f"step 1, {'/'.join(leaf.path)}[{j}]"
                 _, r, e2, e0 = br_compare(
-                    torch, fp, (x, x.grad, opt.tau[i]), c,
-                    f"step 1, {'/'.join(leaf.path)}[{j}]",
+                    torch, fp, (x, x.grad, opt.tau[i]), c, what,
                     kernel=kops.flexa_best_response)
                 e_k, e_p, n, rel_t = e_k + e2, e_p + e0, n + 1, max(rel_t, r)
+                args = (x, x.grad, opt.tau[i], c, opt.gamma)
+                equal_or_fail(torch, "apply_update", kops.flexa_apply(*args),
+                              fp.apply_update.plain(*args), what)
             rel_leaf = max(rel_leaf, abs(e_k - e_p) / max(e_p, 1e-30))
     del model, opt, loss
     torch.cuda.empty_cache()
@@ -981,20 +1368,24 @@ def phase_train(torch, fp, dev):
 
     # the main path: counters to 0 just before, read just after
     torch.cuda.reset_peak_memory_stats()
-    for k in (fp.best_response, fp.gather_rows, fp.scatter_rows):
+    for k in (fp.best_response, fp.apply_update, fp.gather_rows,
+              fp.scatter_rows, fp.batched_best_response,
+              fp.batched_apply_update):
         k.launches = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
     model, opt = loop.run()
     wall = time.perf_counter() - t
     launches = fp.best_response.launches
+    apply_launches = fp.apply_update.launches
     peak = torch.cuda.max_memory_allocated()
     losses = [m["loss"] for m in loop.metrics_log]
     step_s = [m["time"] for m in loop.metrics_log]
     check(len(losses) == steps and all(math.isfinite(v) for v in losses),
           f"losses {losses}")
-    check(launches == steps * per_step, f"best_response launched "
-          f"{launches} times in {steps} steps, want {steps * per_step}")
+    check(launches == apply_launches == steps * per_step,
+          f"best_response launched {launches} times, apply_update "
+          f"{apply_launches}, in {steps} steps, want {steps * per_step}")
 
     # one more step under the profiler: launches and device time
     torch.cuda.synchronize()
@@ -1005,8 +1396,9 @@ def phase_train(torch, fp, dev):
         torch.cuda.synchronize()
         prof_s = time.perf_counter() - t
     prof_launches = fp.best_response.launches - launches
+    prof_apply = fp.apply_update.launches - apply_launches
     per_kernel, busy = device_kernels(torch, prof, {
-        "best_response": KERNEL_NAMES["best_response"]})
+        k: KERNEL_NAMES[k] for k in ("best_response", "apply_update")})
     top = top_kernels(torch, prof)
     edges, records = window_edges(torch, prof)
     del prof
@@ -1029,11 +1421,13 @@ def phase_train(torch, fp, dev):
     torch.cuda.synchronize()
     split["optimizer_ms"] = (time.perf_counter() - t) * 1e3
     del grads, loss
-    check(per_kernel["best_response"][0] == prof_launches == per_step,
-          f"best_response launches in the profiled step: profiler "
-          f"{per_kernel['best_response'][0]}, counter {prof_launches}, "
-          f"want {per_step} ({records} device records; first and last "
-          f"{edges} ms inside the step)")
+    check(per_kernel["best_response"][0] == prof_launches == per_step
+          and per_kernel["apply_update"][0] == prof_apply == per_step,
+          f"launches in the profiled step: best_response profiler "
+          f"{per_kernel['best_response'][0]}, counter {prof_launches}; "
+          f"apply_update profiler {per_kernel['apply_update'][0]}, counter "
+          f"{prof_apply}; want {per_step} ({records} device records; "
+          f"first and last {edges} ms inside the step)")
     steady = step_s[1:]
     say("train", arch=cfg.name, layers=cfg.num_layers, batch=nb, seq=seq,
         dtype=cfg.dtype, optimizer=tcfg.optimizer, steps=steps,
@@ -1043,13 +1437,19 @@ def phase_train(torch, fp, dev):
         tokens_per_s=round(nb * seq * len(steady) / sum(steady), 1),
         peak_memory_gib=round(peak / 2 ** 30, 3),
         launches={"best_response": launches,
+                  "apply_update": apply_launches,
                   "gather_rows": fp.gather_rows.launches,
-                  "scatter_rows": fp.scatter_rows.launches},
+                  "scatter_rows": fp.scatter_rows.launches,
+                  "batched_best_response": fp.batched_best_response.launches,
+                  "batched_apply_update": fp.batched_apply_update.launches},
         launches_per_step=per_step,
         profiled_step_ms=round(prof_s * 1e3, 3),
         best_response_device_ms_per_step=round(
             per_kernel["best_response"][1], 4),
         best_response_profiler_launches=per_kernel["best_response"][0],
+        apply_update_device_ms_per_step=round(
+            per_kernel["apply_update"][1], 4),
+        apply_update_profiler_launches=per_kernel["apply_update"][0],
         device_busy_ms=round(busy[1], 3),
         device_busy_share=busy[1] / (prof_s * 1e3),
         profiled_step_device_records=records,
@@ -1062,7 +1462,7 @@ def phase_train(torch, fp, dev):
         step1_leaf_e2_max_rel_err=rel_leaf, step1_check_s=round(check_s, 2))
     del model, opt, loop
     torch.cuda.empty_cache()
-    return launches
+    return launches, apply_launches
 
 
 def phase_descent(torch, dev):
@@ -1228,6 +1628,104 @@ def kernel_line(torch, fp, ssd, fa, r, launches, serve_launches, err, dev):
                        err["best_response"], dev))
     rows.append(fa_row(torch, fa, launches["flash_attention"],
                        err["flash_attention"], dev))
+    rows += update_rows(torch, fp, launches, err, dev)
+    return rows
+
+
+def update_rows(torch, fp, launches, err, dev):
+    """apply_update at the train path's shapes (lm_head (50304, 2560)
+    fp32, 0-d τ and γ·m, c = 0, in place as the optimizer calls it; and
+    one step's 291 calls), times from CUDA events around back-to-back
+    eager calls; the batched kernels at the batch phase's (8, 100000)
+    bucket (dense d, c and γ·m per instance) and at fig1d's solo
+    (1, 100000), device times of calls replayed from a CUDA graph (a call
+    takes microseconds) with the eager time beside.  Bounds: bytes over
+    HBM — x and g read, x written (12 per fp32 element); x, g and dense d
+    read, z or x written (16)."""
+    x, g, d = br_inputs(torch, (50304, 2560), torch.float32, False, 71, dev)
+    gm = torch.tensor(0.9, device=dev)
+    timed = {"lm_head": {
+        "ms": cuda_ms(torch, lambda: fp.apply_update(x, g, d, 0.0, gm,
+                                                     out=x)),
+        "plain_ms": cuda_ms(torch, lambda: fp.apply_update.plain(
+            x, g, d, 0.0, gm, out=x), reps=5),
+        "bound_ms": bytes_ms(12 * x.numel())}}
+    del x, g, d
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    shapes = [tuple(p.shape) for p in
+              T.DenseLM(get_config(TRAIN["arch"]), device="meta").parameters()]
+    n = sum(math.prod(sh) for sh in shapes)
+    gen = torch.Generator(device=dev).manual_seed(72)
+    pool_x = torch.randn(n, generator=gen, device=dev)
+    pool_g = 0.01 * torch.randn(n, generator=gen, device=dev)
+    d = torch.tensor(1.0, device=dev)
+    views, o = [], 0
+    for sh in shapes:
+        k = math.prod(sh)
+        views.append((pool_x[o:o + k].view(sh), pool_g[o:o + k].view(sh)))
+        o += k
+
+    def step(fn):
+        for xv, gv in views:
+            fn(xv, gv, d, 0.0, gm, out=xv)
+    timed["step"] = {
+        "tensors": len(shapes), "elements": n,
+        "ms": cuda_ms(torch, lambda: step(fp.apply_update), reps=5),
+        "plain_ms": cuda_ms(torch, lambda: step(fp.apply_update.plain),
+                            reps=2),
+        "bound_ms": bytes_ms(12 * n)}
+    del pool_x, pool_g, views
+    torch.cuda.empty_cache()
+    t = timed["lm_head"]
+    rows = [{"name": "apply_update", "route": "cuda",
+             "source": SOURCES["apply_update"],
+             "replaces": REPLACES["apply_update"],
+             "launches": launches["apply_update"],
+             "launches_per_step": len(shapes),
+             "max_abs_err": err["apply_update"],
+             "ms": round(t["ms"], 5), "plain_ms": round(t["plain_ms"], 5),
+             "bound_ms": round(t["bound_ms"], 5), "bound_by": "bytes",
+             # no single PyTorch call computes the fused update
+             "library_ms": None,
+             "shape": "x, g (50304, 2560) fp32, 0-d d and γ·m, c = 0, in "
+                      "place (lm_head)",
+             "timed": {k: {kk: (round(vv, 5) if isinstance(vv, float)
+                                else vv) for kk, vv in v.items()}
+                       for k, v in timed.items()}}]
+    for name in ("batched_best_response", "batched_apply_update"):
+        kernel = getattr(fp, name)
+        timed = {}
+        for key, B in (("batch", 8), ("solo", 1)):
+            x, g, d, c = batched_inputs(torch, B, FIG1D["n"], torch.float32,
+                                        "dense", "instance", 73, dev)
+            args = (x, g, d, c) if name == "batched_best_response" \
+                else (x, g, d, c, torch.rand(B, device=dev))
+            timed[key] = {
+                "shape": [B, FIG1D["n"]],
+                "ms": graph_ms(torch, lambda: kernel(*args)),
+                "eager_ms": cuda_ms(torch, lambda: kernel(*args)),
+                "plain_ms": graph_ms(torch, lambda: kernel.plain(*args)),
+                "bound_ms": bytes_ms(16 * x.numel())}
+            del x, g, d, c, args
+        t = timed["batch"]
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": err[name],
+            "ms": round(t["ms"], 5), "plain_ms": round(t["plain_ms"], 5),
+            "bound_ms": round(t["bound_ms"], 5), "bound_by": "bytes",
+            "library_ms": None,
+            "shape": "x, g, d (8, 100000) fp32, c" + (
+                "" if name == "batched_best_response" else " and γ·m")
+            + " per instance (the batch phase's bucket)",
+            "launches_on": ("the path phase" if name ==
+                            "batched_best_response" else
+                            "the batch phase's Jacobi run"),
+            "timed": {k: {kk: (round(vv, 6) if isinstance(vv, float)
+                               else vv) for kk, vv in v.items()}
+                      for k, v in timed.items()}})
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1359,6 +1857,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
 
+    KERNEL_NAMES.update(fp.KERNEL_NAMES)
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     phase = "setup"
@@ -1369,19 +1868,24 @@ def main() -> int:
         phase = "goldens"
         phase_goldens(torch, dev)
         phase = "solo"
-        p = phase_solo(torch, dev)
+        p = phase_solo(torch, fp, dev)
         phase = "path"
         r, launches = phase_path(torch, fp, p)
         del p
         torch.cuda.empty_cache()
         phase = "compact"
         phase_compact_vs_dense(torch, dev)
+        phase = "batch"
+        launches["batched_apply_update"] = phase_batch(torch, fp, dev)
+        phase = "cv"
+        phase_cv(torch, fp, dev)
         phase = "serve"
         serve_launches = phase_serve(torch, ssd, dev)
         phase = "serve_dense"
         launches["flash_attention"] = phase_serve_dense(torch, fa, dev)
         phase = "train"
-        launches["best_response"] = phase_train(torch, fp, dev)
+        launches["best_response"], launches["apply_update"] = phase_train(
+            torch, fp, dev)
         phase = "descent"
         phase_descent(torch, dev)
         phase = "kernel timing"

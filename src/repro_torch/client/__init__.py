@@ -5,10 +5,13 @@
     client = FlexaClient()                  # inline backend, on the card
     r = client.run(SoloSpec(problem))
     path = client.run(PathSpec(problem, compact=True))
+    batch = client.run(BatchSpec(problems))
+    cv = client.run(CVSpec(folds, validation=pairs))
 
 Ported: :class:`FlexaClient` with the ``inline`` backend, running
-:class:`SoloSpec` and :class:`PathSpec`.  ``BatchSpec``, ``CVSpec``, the
-serving backends and ``SolveRequest`` raise :class:`NotPortedError`.
+:class:`SoloSpec`, :class:`BatchSpec`, :class:`PathSpec` and
+:class:`CVSpec`.  The serving backends and ``SolveRequest`` raise
+:class:`NotPortedError`.
 """
 from repro_torch.client.backends import (Backend, InlineBackend,
                                          available_backends, make_backend,
@@ -17,18 +20,20 @@ from repro_torch.client.errors import (ClientError, NotPortedError,
                                        SpecError, UnknownBackendError,
                                        UnsupportedWorkloadError)
 from repro_torch.client.session import FlexaClient
-from repro_torch.client.specs import (BatchSpec, CVSpec, PathSpec,
-                                      SoloResult, SoloSpec,
-                                      TicketDiagnostics, WorkItem,
-                                      normalize, solve_request_of)
+from repro_torch.client.specs import (BatchResult, BatchSpec, CVResult,
+                                      CVSpec, PathSpec, SoloResult,
+                                      SoloSpec, TicketDiagnostics, WorkItem,
+                                      mse_score, normalize,
+                                      solve_request_of)
 from repro_torch.config.base import ClientConfig
 from repro_torch.path.driver import PathResult
 
 __all__ = [
     "FlexaClient", "ClientConfig",
     "SoloSpec", "PathSpec", "BatchSpec", "CVSpec",
-    "SoloResult", "PathResult", "TicketDiagnostics", "WorkItem",
-    "normalize", "solve_request_of",
+    "SoloResult", "BatchResult", "PathResult", "CVResult",
+    "TicketDiagnostics", "WorkItem", "normalize", "mse_score",
+    "solve_request_of",
     "Backend", "InlineBackend",
     "available_backends", "register_backend", "make_backend",
     "ClientError", "SpecError", "UnknownBackendError",

@@ -6,7 +6,7 @@
   backend cannot execute it.
 * :class:`UnknownBackendError` — ``ClientConfig.backend`` names nothing.
 * :class:`NotPortedError` — the reference has it, this port not yet
-  (``BatchSpec``, ``CVSpec``, the serving backends, ``SolveRequest``).
+  (the serving backends and their ``SolveRequest`` payload).
 """
 from __future__ import annotations
 

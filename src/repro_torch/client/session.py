@@ -5,6 +5,10 @@
     client = FlexaClient()                        # inline, on the card
     r = client.run(SoloSpec(problem))             # submit + wait
 
+The same ``run`` / ``submit`` take :class:`~repro_torch.client.specs.
+BatchSpec`, :class:`~repro_torch.client.specs.PathSpec` and
+:class:`~repro_torch.client.specs.CVSpec`.
+
 ``FlexaClient(device="cpu")`` runs on the host instead.  The default
 device is ``"cuda"``; constructing a client for it where CUDA is missing
 raises, before any work is accepted.

@@ -32,7 +32,8 @@ import torch
 from repro_torch.config.base import SolverConfig
 from repro_torch.core import selection, stepsize
 from repro_torch.core.result import SolverResult
-from repro_torch.core.surrogate import best_response, curvature
+from repro_torch.core.surrogate import (best_response, curvature,
+                                        full_update, fused)
 from repro_torch.problems.base import Problem
 
 #: Iterations between two host reads of the stop flag in the device loops.
@@ -142,8 +143,13 @@ def flexa_iteration(problem: Problem, cfg: SolverConfig,
     mask = mask_b if problem.block_size == 1 \
         else mask_b.repeat_interleave(problem.block_size, dim=-1)
 
-    # (S.4) damped, masked update.
-    xnew = x + state.gamma.unsqueeze(-1) * mask * (zhat - x)
+    # (S.4) damped, masked update.  Under the full rule with nothing
+    # frozen the mask is all ones, and the fused kernel gives the same
+    # bits: x + γ·(x̂ − x), x̂ recomputed instead of read back.
+    if active is None and selection.is_full(cfg) and fused(problem):
+        xnew = full_update(problem, x, grad, d, state.gamma)
+    else:
+        xnew = x + state.gamma.unsqueeze(-1) * mask * (zhat - x)
     v_new = problem.v(xnew)
 
     # §4 τ-controller (finitely many changes).
@@ -206,13 +212,18 @@ def _finished(state: FlexaState, cfg: SolverConfig) -> torch.Tensor:
 def run_frozen(step, state: FlexaState, cfg: SolverConfig) -> FlexaState:
     """Iterate ``step`` until every instance has stopped (stat ≤ tol or
     k ≥ max_iters), reading the stop flag every :data:`CHECK_EVERY`
-    iterations; finished instances are frozen, so the result equals a
-    loop that checks after every iteration."""
+    iterations (and never stepping more than max_iters times: ``state``
+    starts at k = 0); finished instances are frozen, so the result equals
+    a loop that checks after every iteration."""
     done = _finished(state, cfg)
+    steps = 0
     while not bool(done.all()):
-        for _ in range(CHECK_EVERY):
+        # No chunk runs past max_iters steps: by then every instance has
+        # stopped (k counts from 0 at most once per step).
+        for _ in range(max(1, min(CHECK_EVERY, cfg.max_iters - steps))):
             state = freeze_done(done, step(state), state)
             done = done | _finished(state, cfg)
+        steps += CHECK_EVERY
     return state
 
 

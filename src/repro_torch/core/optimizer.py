@@ -22,9 +22,13 @@ writes the new values into the parameters in place under
 ``torch.no_grad()`` (the reference returns new arrays; updating in place
 saves a copy of the model), returning ``(params, new_state, metrics)``.
 Nothing in it reads a value back to the host: τ, γ, the mask and every
-Eᵢ² stay on the device, and the kernel reads its scalar τᵢ through a
-device pointer.  Like the reference it builds every zᵢ before the mask
-(one fp32 copy of the model).
+Eᵢ² stay on the device, and the kernels read τᵢ and γ·mᵢ through device
+pointers.  Where the reference keeps every zᵢ until the mask is known
+(one fp32 copy of the model), the port keeps only each tensor's Eᵢ²:
+once the mask is known it updates each tensor with
+:func:`repro_torch.kernels.ops.flexa_apply` (the fused ``apply_update``
+kernel on the card), which recomputes zᵢ in registers and rounds as
+x + γ·mᵢ·(zᵢ − x) did when zᵢ was kept.
 """
 from __future__ import annotations
 
@@ -65,6 +69,11 @@ def _l1_mask(path: tuple) -> bool:
     """
     name = path_name(path).lower()
     return not any(s in name for s in ("embed", "norm", "scale", "bias"))
+
+
+def _d(tau_i: torch.Tensor, qs, j: int):
+    """dᵢ of a leaf's j-th tensor: τᵢ, or τᵢ·qᵢ with diag-Q."""
+    return tau_i if qs is None else tau_i * qs[j]
 
 
 def _zeros_like_leaves(params) -> list:
@@ -108,21 +117,19 @@ def flexa_optimizer(cfg: TrainConfig):
             new_q_ema = None
             leaves_q = [None] * len(params)
 
-        # Per-tensor best response; Eᵢ² summed over the leaf's tensors.
-        zs, Es = [], []
+        # Per-tensor best response; Eᵢ² summed over the leaf's tensors,
+        # each z dropped at once.
+        cs, Es = [], []
         for i, (leaf, gs, qs) in enumerate(zip(params, grads, leaves_q)):
             tau_i = state.tau[i]
             c = cfg.flexa_l1 if (cfg.flexa_l1 > 0 and _l1_mask(leaf.path)) \
                 else 0.0
-            z_leaf, e2 = [], None
+            e2 = None
             for j, (x, g) in enumerate(zip(leaf.tensors, gs)):
-                d = tau_i if qs is None else tau_i * qs[j]
-                z, e = kops.flexa_best_response(x, g, d, c)
-                z_leaf.append(z)
+                _, e = kops.flexa_best_response(x, g, _d(tau_i, qs, j), c)
                 e2 = e if e2 is None else e2 + e
-            zs.append(z_leaf)
+            cs.append(c)
             Es.append(e2)
-        del leaves_q
         E = torch.sqrt(torch.stack(Es))              # ‖x̂ᵢ−xᵢ‖₂ per leaf
         M = torch.max(E)
 
@@ -131,22 +138,14 @@ def flexa_optimizer(cfg: TrainConfig):
         else:
             mask = (E >= cfg.flexa_rho * M).to(E.dtype)
 
-        # x + (γ·maskᵢ)·(z − x) in fp32, into the parameter; each z is
-        # reused for (z − x) and dropped as soon as its tensor is done.
+        # x + (γ·maskᵢ)·(z − x) into the parameter, z recomputed.
         gamma = state.gamma
-        for i, leaf in enumerate(params):
+        for i, (leaf, gs, qs) in enumerate(zip(params, grads, leaves_q)):
             gm = gamma * mask[i]
-            z_leaf = zs[i]
-            for j, x in enumerate(leaf.tensors):
-                z = z_leaf[j]
-                z_leaf[j] = None
-                xf = x.to(torch.float32)
-                z.sub_(xf).mul_(gm)
-                if x.dtype == torch.float32:
-                    x.add_(z)
-                else:
-                    x.copy_(xf + z)
-            zs[i] = None
+            for j, (x, g) in enumerate(zip(leaf.tensors, gs)):
+                kops.flexa_apply(x, g, _d(state.tau[i], qs, j), cs[i], gm,
+                                 out=x)
+        del leaves_q
 
         # §4 τ-controller on the training loss (finite-change budget).
         can = state.n_tau_changes < MAX_TAU_CHANGES

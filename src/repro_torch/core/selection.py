@@ -110,15 +110,20 @@ def needs_generator(rule: str) -> bool:
     return rule in RANDOMIZED_RULES
 
 
+def is_full(cfg) -> bool:
+    """Whether ``cfg`` selects every block (Sᵏ = 𝒩) each iteration."""
+    return cfg.jacobi or cfg.selection in ("full", "jacobi")
+
+
 def make_mask(E: torch.Tensor, cfg, gen, k, M=None) -> torch.Tensor:
     """Dispatch Step S.3 on ``cfg.selection`` (``cfg.jacobi=True``
     overrides to the full rule).  ``gen`` feeds the randomized rules,
     ``k`` the cyclic rule, ``M`` is an optional precomputed max of E."""
-    rule = "full" if cfg.jacobi else cfg.selection
+    if is_full(cfg):
+        return full_mask(E)
+    rule = cfg.selection
     if rule == "greedy":
         return greedy_mask(E, cfg.rho, M)
-    if rule in ("full", "jacobi"):
-        return full_mask(E)
     if rule == "southwell":
         return southwell_mask(E)
     if rule == "topk":

@@ -8,12 +8,18 @@
   wait with the group-Lasso family.
 
 Best responses are elementwise over the coordinate vector (with any
-leading instance axes).
+leading instance axes).  For the ℓ1 problems with scalar blocks (the
+paper's Lasso) the best response, and under the full rule the update
+that follows it, run as the fused kernels of
+:mod:`repro_torch.kernels.ops` (the CUDA kernels on the card), whose
+plain versions are these steps' torch expressions, rounding for
+rounding.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ops as kops
 from repro_torch.problems.base import Problem
 
 
@@ -26,7 +32,35 @@ def curvature(problem: Problem, tau, surrogate: str) -> torch.Tensor:
     raise ValueError(f"unknown surrogate {surrogate!r}")
 
 
+def fused(problem: Problem) -> bool:
+    """Whether the best response is one soft threshold per coordinate
+    with an active weight: ℓ1, scalar blocks, G on."""
+    return (problem.g_kind == "l1" and problem.block_size == 1
+            and not problem._g_off())
+
+
+def _bucket(problem: Problem, x, grad, d):
+    """x, ∇F, d as (B, n) rows (a solo x is one row) and c per row."""
+    c = problem.g_weight
+    if isinstance(c, torch.Tensor):
+        c = c.reshape(-1)
+    rows = (-1, problem.n)
+    return x.reshape(rows), grad.reshape(rows), d.reshape(rows), c
+
+
 def best_response(problem: Problem, x, grad, d):
-    """x̂(x, τ) = argmin of the surrogate (Eq. (2)), blockwise: one prox."""
+    """x̂(x, τ) = argmin of the surrogate (Eq. (2)), blockwise: one prox
+    (the fused batched best response where :func:`fused` holds)."""
+    if fused(problem):
+        z, _ = kops.flexa_best_response_batched(
+            *_bucket(problem, x, grad, d))
+        return z.view(x.shape)
     w = x - grad / d
     return problem.prox(w, 1.0 / d)
+
+
+def full_update(problem: Problem, x, grad, d, gamma):
+    """x + γ·(x̂ − x), γ per instance: step S.4 under the full rule, with
+    x̂ recomputed by the fused kernel (needs :func:`fused`)."""
+    return kops.flexa_apply_batched(*_bucket(problem, x, grad, d),
+                                    gamma).view(x.shape)

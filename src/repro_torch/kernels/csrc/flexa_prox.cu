@@ -1,4 +1,4 @@
-// FLEXA best response of one parameter tensor, for sm_90a.
+// FLEXA best response and fused updates, for sm_90a.
 //
 // best_response replaces src/repro/kernels/flexa_prox.py:55 (best_response,
 // pallas_call at :69):
@@ -8,35 +8,63 @@
 //
 // with d a scalar read through a device pointer (tau_i, so the optimizer
 // never syncs the host) or a dense fp32 tensor of x's shape (tau_i * q_i),
-// and c a host float.  x and g are fp32, bf16 or fp16; z is fp32.
+// and c a host float.  x and g are fp32 or bf16; z is fp32.
 //
-// What bounds it on an H100: one pass over the data and nothing to reuse.
-// It reads x and g (and a dense d) once and writes z once: 12 bytes per
-// fp32 element (16 with dense d), against 3 flops.  The floor is those
-// bytes over 3.35 TB/s of HBM3: 0.063 ms for stablelm-3b's largest layer
-// tensor (2560 x 6912), 0.46 ms for its (50304 x 2560) lm_head.
+// apply_update replaces flexa_prox.py:104 (apply_update, pallas_call at
+// :117): out = x + gm * (z - x), z as best_response computes it but kept
+// in registers, never written; gm (gamma * mask_i) a 0-d device tensor;
+// out in x's dtype, and may be x itself (the FLEXA optimizer updates its
+// parameters in place).  The roundings are the optimizer's: (z - x), then
+// * gm, then x +, each an fp32 op of its own (__fsub_rn, __fmul_rn,
+// __fadd_rn: nvcc would otherwise contract x + gm * (z - x) into an FMA,
+// which rounds once where the torch expression rounds twice), then one
+// rounding to x's dtype.
+//
+// batched_best_response and batched_apply_update replace flexa_prox.py:174
+// and :223 (pallas_call at :188 and :239): the same two functions over a
+// (B, n) bucket of B instances, with d a scalar, one per instance (B,) or
+// dense (B, n), c a host float, a 0-d or a (B,) device tensor, and gm a
+// 0-d or (B,) device tensor.  The function is the TPU kernel's; the rounding of the
+// threshold is the FLEXA solver's, t = (1 / d) * c (a reciprocal, then a
+// product), not the TPU kernel's c / d: these two kernels are steps S.2
+// and S.4 of the solver's iteration (src/repro_torch/core/flexa.py), whose
+// torch expression rounds so, and the lambda-path stops at the fp32 noise
+// floor, where a one-ulp change of the threshold changes which points
+// converge.  e2 is (B,), one fixed-order sum per instance.
+//
+// What bounds them on an H100: one pass over the data and nothing to
+// reuse.  best_response reads x and g (and a dense d) once and writes z
+// once: 12 bytes per fp32 element (16 with dense d), against 3 flops;
+// apply_update reads x and g and writes x: 12 bytes per element as well.
+// The floor is those bytes over 3.35 TB/s of HBM3: 0.063 ms for
+// stablelm-3b's largest layer tensor (2560 x 6912), 0.46 ms for its
+// (50304 x 2560) lm_head.  At the solver's (8, 100000) bucket with dense d
+// (16 bytes per element) it is 3.8 us, less than a launch costs.
 //
 // What the design does about it:
-//  * The TPU kernel's (256, 512) VMEM tiles and the 512-column padding of
-//    its dispatch have no reason to exist here: the kernel walks the flat
-//    numel elements once, grid-stride, 16 bytes of x and of g per thread
-//    per step (4 fp32 or 8 bf16/fp16 elements) when every pointer is
-//    16-byte aligned, with a scalar tail; a misaligned view takes the
-//    scalar loop throughout.
+//  * The TPU kernels' (256, 512) VMEM tiles and the 512-column padding of
+//    their dispatch have no reason to exist here: each kernel walks an
+//    instance's n elements once, grid-stride, 16 bytes of x and of g per
+//    thread per step (4 fp32 or 8 bf16 elements) when every pointer is
+//    16-byte aligned (and, with B > 1, n keeps each row aligned), with a
+//    scalar tail; otherwise the scalar loop throughout.  A bucket is a
+//    grid of (blocks per instance, B); a ragged n is masked by the loop
+//    bounds.
 //  * e2: each thread accumulates (z - x)^2 in fp32, one accumulator per
 //    vector lane (short dependent chains), then a fixed warp-shuffle tree
 //    and a fixed tree over the block's warps give one partial per block.
-//    The last block to finish (a ticket counter, reset with a memset
-//    before the launch) sums the partials in index order.  The number of
-//    blocks depends only on numel and the SM count, so the same inputs
-//    give the same bits on every launch: no float atomics.
-//  * Built without --use_fast_math, so g / d and c / d are IEEE divisions
+//    The last block of an instance to finish (a ticket counter per
+//    instance, reset with a memset before the launch) sums that
+//    instance's partials in index order.  The number of blocks depends
+//    only on n, B and the SM count, so the same inputs give the same bits
+//    on every launch: no float atomics.
+//  * Built without --use_fast_math, so every quotient is an IEEE division
 //    and z equals the plain torch version bit for bit; only e2's
 //    summation order differs from it.
 //
 // Plain C interface, bound with ctypes: pointers are raw device addresses,
-// the stream is the caller's current CUDA stream, and the launcher returns
-// cudaGetLastError() after its launch (0 = success).
+// the stream is the caller's current CUDA stream, and each launcher
+// returns cudaGetLastError() after its launch (0 = success).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -57,6 +85,17 @@ template <> struct Cvt<float> {
 template <> struct Cvt<__nv_bfloat16> {
   static __device__ __forceinline__ float to(__nv_bfloat16 v) {
     return __bfloat162float(v);
+  }
+};
+
+// fp32 -> T, rounded to nearest even (torch's .to() and copy_).
+template <typename T> struct Out;
+template <> struct Out<float> {
+  static __device__ __forceinline__ float from(float v) { return v; }
+};
+template <> struct Out<__nv_bfloat16> {
+  static __device__ __forceinline__ __nv_bfloat16 from(float v) {
+    return __float2bfloat16_rn(v);
   }
 };
 
@@ -214,6 +253,291 @@ void launch_d(int dense_d, const void* x, const void* g, const float* d,
     launch_typed<T, false>(x, g, d, c, z, work, n, blocks, st);
 }
 
+
+// ---------------------------------------------------------------------
+// apply_update, batched_best_response, batched_apply_update
+// ---------------------------------------------------------------------
+
+// How a kernel reads d: one value for the launch, one per instance, or
+// dense (one per element).
+enum DMode { kDScalar = 0, kDInstance = 1, kDDense = 2 };
+
+// The threshold: c / d (best_response's and apply_update's rounding) or
+// (1 / d) * c (the solver chain's, kRecip).  Intrinsics keep each op
+// rounded on its own: |w| - t below must not absorb the product into an
+// FMA.
+template <bool kRecip>
+__device__ __forceinline__ float threshold(float c, float d) {
+  return kRecip ? __fmul_rn(__fdiv_rn(1.f, d), c) : __fdiv_rn(c, d);
+}
+
+__device__ __forceinline__ float response(float xf, float gf, float d,
+                                          float t) {
+  return soft(__fsub_rn(xf, __fdiv_rn(gf, d)), t);
+}
+
+// x + gm * (z - x), rounded as torch rounds x + gm * (z - x): three ops.
+__device__ __forceinline__ float update(float xf, float z, float gm) {
+  return __fadd_rn(xf, __fmul_rn(__fsub_rn(z, xf), gm));
+}
+
+// One instance's n elements, grid-stride over blockIdx.x: z (kApply =
+// false; returns this thread's sum of (z - x)^2) or the update into out
+// (kApply).  x and out may be one array: each element is read, then
+// written, by one thread.
+template <typename T, int kD, bool kVec, bool kRecip, bool kApply>
+__device__ __forceinline__ float stream(
+    const T* x, const T* __restrict__ g, const float* __restrict__ d,
+    float d0, float c, float gm, float* __restrict__ z, T* out,
+    long long n) {
+  constexpr int V = 16 / sizeof(T);     // elements per 16-byte load of x
+  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kThreads;
+  const float t0 = kD == kDDense ? 0.f : threshold<kRecip>(c, d0);
+  float acc[V];
+#pragma unroll
+  for (int q = 0; q < V; ++q) acc[q] = 0.f;
+
+  long long done = 0;
+  if (kVec) {
+    const long long nv = n / V;
+    const uint4* x4 = reinterpret_cast<const uint4*>(x);
+    const uint4* g4 = reinterpret_cast<const uint4*>(g);
+    const float4* d4 = reinterpret_cast<const float4*>(d);
+    for (long long i = tid; i < nv; i += stride) {
+      const uint4 xr = x4[i];
+      const uint4 gr = g4[i];
+      const T* xe = reinterpret_cast<const T*>(&xr);
+      const T* ge = reinterpret_cast<const T*>(&gr);
+      float dv[V];
+      if (kD == kDDense) {
+#pragma unroll
+        for (int q = 0; q < V / 4; ++q) {
+          const float4 dd = d4[i * (V / 4) + q];
+          dv[4 * q] = dd.x; dv[4 * q + 1] = dd.y;
+          dv[4 * q + 2] = dd.z; dv[4 * q + 3] = dd.w;
+        }
+      }
+      float zv[V];
+      uint4 orow;
+      T* oe = reinterpret_cast<T*>(&orow);
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const float xf = Cvt<T>::to(xe[q]);
+        const float dq = kD == kDDense ? dv[q] : d0;
+        const float tq = kD == kDDense ? threshold<kRecip>(c, dq) : t0;
+        zv[q] = response(xf, Cvt<T>::to(ge[q]), dq, tq);
+        if (kApply) {
+          oe[q] = Out<T>::from(update(xf, zv[q], gm));
+        } else {
+          const float diff = zv[q] - xf;
+          acc[q] += diff * diff;
+        }
+      }
+      if (kApply) {
+        reinterpret_cast<uint4*>(out)[i] = orow;
+      } else {
+        float4* z4 = reinterpret_cast<float4*>(z);
+#pragma unroll
+        for (int q = 0; q < V / 4; ++q)
+          z4[i * (V / 4) + q] = make_float4(zv[4 * q], zv[4 * q + 1],
+                                            zv[4 * q + 2], zv[4 * q + 3]);
+      }
+    }
+    done = nv * V;
+  }
+  for (long long i = done + tid; i < n; i += stride) {
+    const float xf = Cvt<T>::to(x[i]);
+    const float dq = kD == kDDense ? d[i] : d0;
+    const float tq = kD == kDDense ? threshold<kRecip>(c, dq) : t0;
+    const float zi = response(xf, Cvt<T>::to(g[i]), dq, tq);
+    if (kApply) {
+      out[i] = Out<T>::from(update(xf, zi, gm));
+    } else {
+      z[i] = zi;
+      const float diff = zi - xf;
+      acc[0] += diff * diff;
+    }
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int q = 0; q < V; ++q) s += acc[q];
+  return s;
+}
+
+template <typename T, bool kDenseD, bool kVec>
+__global__ void __launch_bounds__(kThreads) flexa_apply_update_kernel(
+    const T* x, const T* __restrict__ g, const float* __restrict__ d,
+    float c, const float* __restrict__ gm, T* out, long long n) {
+  stream<T, kDenseD ? kDDense : kDScalar, kVec, false, true>(
+      x, g, d, kDenseD ? 0.f : d[0], c, gm[0], nullptr, out, n);
+}
+
+// d0 of instance b (kDScalar: d[0]; kDInstance: d[b]).
+template <int kD>
+__device__ __forceinline__ float instance_d(const float* d, int b) {
+  return kD == kDScalar ? d[0] : (kD == kDInstance ? d[b] : 0.f);
+}
+
+// A per-instance scalar: v[b * stride] from the device, or the host value
+// when v is null.
+__device__ __forceinline__ float instance_v(const float* v, int stride,
+                                            float host, int b) {
+  return v ? v[(long long)b * stride] : host;
+}
+
+template <typename T, int kD, bool kVec>
+__global__ void __launch_bounds__(kThreads) flexa_batched_best_response_kernel(
+    const T* __restrict__ x, const T* __restrict__ g,
+    const float* __restrict__ d, const float* __restrict__ c, int c_stride,
+    float c_host, float* __restrict__ z, float* __restrict__ partials,
+    unsigned* __restrict__ tickets, float* __restrict__ e2, long long n) {
+  __shared__ float sh[kWarps];
+  __shared__ bool last;
+  const int b = blockIdx.y;
+  const long long off = (long long)b * n;
+  float s = stream<T, kD, kVec, true, false>(
+      x + off, g + off, kD == kDDense ? d + off : d, instance_d<kD>(d, b),
+      instance_v(c, c_stride, c_host, b), 0.f, z + off, nullptr, n);
+
+  float* part = partials + (long long)b * gridDim.x;
+  s = block_sum(s, sh);
+  if (threadIdx.x == 0) {
+    part[blockIdx.x] = s;
+    __threadfence();                      // partial visible before ticket
+    last = atomicAdd(tickets + b, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // The instance's last block: sum its partials in index order.
+  __threadfence();
+  float p = 0.f;
+  for (unsigned j = threadIdx.x; j < gridDim.x; j += kThreads)
+    p += __ldcg(part + j);
+  __syncthreads();                        // sh is reused
+  p = block_sum(p, sh);
+  if (threadIdx.x == 0) e2[b] = p;
+}
+
+template <typename T, int kD, bool kVec>
+__global__ void __launch_bounds__(kThreads) flexa_batched_apply_update_kernel(
+    const T* __restrict__ x, const T* __restrict__ g,
+    const float* __restrict__ d, const float* __restrict__ c, int c_stride,
+    float c_host, const float* __restrict__ gm, int gm_stride,
+    T* __restrict__ out, long long n) {
+  const int b = blockIdx.y;
+  const long long off = (long long)b * n;
+  stream<T, kD, kVec, true, true>(
+      x + off, g + off, kD == kDDense ? d + off : d, instance_d<kD>(d, b),
+      instance_v(c, c_stride, c_host, b), gm[(long long)b * gm_stride],
+      nullptr, out + off, n);
+}
+
+// The 16-byte path: every array aligned, and (B > 1) rows of n elements
+// that keep the alignment.
+template <typename T>
+bool vector_ok(const void* x, const void* g, const void* o, const float* d,
+               bool dense, long long n, int B) {
+  constexpr int V = 16 / sizeof(T);
+  return aligned16(x) && aligned16(g) && aligned16(o) &&
+         (!dense || aligned16(d)) && (B == 1 || n % V == 0);
+}
+
+template <typename T>
+void launch_apply(const void* x, const void* g, const float* d, bool dense,
+                  float c, const float* gm, void* out, long long n,
+                  int blocks, cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  T* ot = static_cast<T*>(out);
+  const bool vec = vector_ok<T>(x, g, out, d, dense, n, 1);
+#define APPLY(DENSE, VEC)                                                  \
+  flexa_apply_update_kernel<T, DENSE, VEC><<<blocks, kThreads, 0, st>>>(   \
+      xt, gt, d, c, gm, ot, n)
+  if (dense) { if (vec) APPLY(true, true); else APPLY(true, false); }
+  else { if (vec) APPLY(false, true); else APPLY(false, false); }
+#undef APPLY
+}
+
+template <typename T, int kD>
+void launch_batched(bool apply, const void* x, const void* g, const float* d,
+                    const float* c, int c_stride, float c_host,
+                    const float* gm, int gm_stride, void* o,
+                    float* work, long long n, int B, int blocks,
+                    cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  const dim3 grid(blocks, B);
+  const bool vec = vector_ok<T>(x, g, o, d, kD == kDDense, n, B);
+  if (apply) {
+    T* ot = static_cast<T*>(o);
+    if (vec)
+      flexa_batched_apply_update_kernel<T, kD, true><<<grid, kThreads, 0, st>>>(
+          xt, gt, d, c, c_stride, c_host, gm, gm_stride, ot, n);
+    else
+      flexa_batched_apply_update_kernel<T, kD, false><<<grid, kThreads, 0, st>>>(
+          xt, gt, d, c, c_stride, c_host, gm, gm_stride, ot, n);
+    return;
+  }
+  float* z = static_cast<float*>(o);
+  float* partials = work;
+  unsigned* tickets = reinterpret_cast<unsigned*>(work + (long long)B * blocks);
+  float* e2 = work + (long long)B * blocks + B;
+  if (vec)
+    flexa_batched_best_response_kernel<T, kD, true><<<grid, kThreads, 0, st>>>(
+        xt, gt, d, c, c_stride, c_host, z, partials, tickets, e2, n);
+  else
+    flexa_batched_best_response_kernel<T, kD, false><<<grid, kThreads, 0, st>>>(
+        xt, gt, d, c, c_stride, c_host, z, partials, tickets, e2, n);
+}
+
+template <typename T>
+int launch_batched_d(int d_mode, bool apply, const void* x, const void* g,
+                     const float* d, const float* c, int c_stride,
+                     float c_host, const float* gm, int gm_stride,
+                     void* o, float* work, long long n, int B,
+                     int blocks, cudaStream_t st) {
+  switch (d_mode) {
+    case kDScalar:
+      launch_batched<T, kDScalar>(apply, x, g, d, c, c_stride, c_host, gm,
+                                  gm_stride, o, work, n, B, blocks, st);
+      break;
+    case kDInstance:
+      launch_batched<T, kDInstance>(apply, x, g, d, c, c_stride, c_host, gm,
+                                    gm_stride, o, work, n, B, blocks,
+                                    st);
+      break;
+    case kDDense:
+      launch_batched<T, kDDense>(apply, x, g, d, c, c_stride, c_host, gm,
+                                 gm_stride, o, work, n, B, blocks, st);
+      break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
+int launch_batched_any(int dtype, int d_mode, bool apply, const void* x,
+                       const void* g, const float* d, const float* c,
+                       int c_stride, float c_host, const float* gm,
+                       int gm_stride, void* o, float* work,
+                       long long n, int B, int blocks, cudaStream_t st) {
+  int rc;
+  switch (dtype) {
+    case kF32:
+      rc = launch_batched_d<float>(d_mode, apply, x, g, d, c, c_stride, c_host,
+                                   gm, gm_stride, o, work, n, B,
+                                   blocks, st);
+      break;
+    case kBF16:
+      rc = launch_batched_d<__nv_bfloat16>(d_mode, apply, x, g, d, c, c_stride,
+                                           c_host, gm, gm_stride, o,
+                                           work, n, B, blocks, st);
+      break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return rc ? rc : (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // work: blocks + 2 fp32 slots — the per-block partials, the ticket counter
@@ -232,4 +556,56 @@ extern "C" int best_response_launch(const void* x, const void* g, int dtype,
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// out = x + gm * (z - x) over n elements (out may be x); d a 0-d (dense_d
+// = 0) or dense fp32 array, gm a 0-d fp32 array, c a host float.
+extern "C" int apply_update_launch(const void* x, const void* g, int dtype,
+                                   const float* d, int dense_d, float c,
+                                   const float* gm, void* out, long long n,
+                                   int blocks, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || blocks <= 0) return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case kF32: launch_apply<float>(x, g, d, dense_d, c, gm, out, n, blocks, st); break;
+    case kBF16: launch_apply<__nv_bfloat16>(x, g, d, dense_d, c, gm, out, n, blocks, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// z (B, n) fp32 and e2 (B,) of B instances.  d_mode: 0 d[0], 1 d[b], 2
+// dense (B, n).  c: c[b * c_stride] from the device, or c_host when c is
+// null.  work: B * blocks + 2 * B fp32 slots — the per-block partials, the
+// per-instance ticket counters (as unsigned, zeroed here before the
+// launch) and e2.
+extern "C" int batched_best_response_launch(
+    const void* x, const void* g, int dtype, const float* d, int d_mode,
+    const float* c, int c_stride, float c_host, float* z, float* work,
+    long long n, int B, int blocks, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || B <= 0 || B > 65535 || blocks <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(work + (long long)B * blocks, 0,
+                                    sizeof(unsigned) * B, st);
+  if (err != cudaSuccess) return (int)err;
+  return launch_batched_any(dtype, d_mode, false, x, g, d, c, c_stride,
+                            c_host, nullptr, 0, z, work, n, B, blocks,
+                            st);
+}
+
+// out (B, n) in x's dtype = x + gm_b * (z - x), z as
+// batched_best_response computes it, gm_b = gm[b * gm_stride] from the
+// device.
+extern "C" int batched_apply_update_launch(
+    const void* x, const void* g, int dtype, const float* d, int d_mode,
+    const float* c, int c_stride, float c_host, const float* gm,
+    int gm_stride, void* out, long long n, int B, int blocks,
+    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || B <= 0 || B > 65535 || blocks <= 0)
+    return (int)cudaErrorInvalidValue;
+  return launch_batched_any(dtype, d_mode, true, x, g, d, c, c_stride, c_host,
+                            gm, gm_stride, out, nullptr, n, B, blocks,
+                            st);
 }

@@ -1,6 +1,7 @@
 """CUDA kernels of ``src/repro/kernels/flexa_prox.py``: the FLEXA best
-response (``best_response``) and the compaction gather/scatter
-(``gather_rows`` / ``scatter_rows``).
+response (``best_response``), its fused update (``apply_update``), their
+batched forms (``batched_best_response``, ``batched_apply_update``) and
+the compaction gather/scatter (``gather_rows`` / ``scatter_rows``).
 
 They replace the Pallas TPU kernels of that file:
 
@@ -9,6 +10,16 @@ They replace the Pallas TPU kernels of that file:
   w = x − g/d in fp32, and e2 = Σ(z − x)², for one parameter tensor of
   any shape; d a 0-d fp32 device tensor or dense fp32 of x's shape, c a
   host float.  Source ``csrc/flexa_prox.cu``.
+* :func:`apply_update` — ``apply_update`` at flexa_prox.py:104
+  (``pallas_call`` :117): x + γ·m·(z − x) in x's dtype, z as
+  :func:`best_response` computes it but never written, γ·m a 0-d fp32
+  device tensor; written into ``out`` (x itself for the optimizer's
+  in-place update).
+* :func:`batched_best_response` / :func:`batched_apply_update` —
+  flexa_prox.py:174 / :223 (``pallas_call`` :188 / :239): the same over a
+  (B, n) bucket with d (), (B,) or dense, c a host float, 0-d or (B,), γ·m
+  a 0-d or (B,) device tensor; e2 (B,).  Their threshold is the solver chain's
+  (1/d)·c, not c/d (``csrc/flexa_prox.cu`` says why).
 * :func:`gather_rows`  — ``gather_rows`` at flexa_prox.py:278
   (``pallas_call`` :294): out[k] = src[idx[k]] in fp32, zero rows for
   idx −1.  ``src`` may be fp32, bf16 or fp16.
@@ -19,10 +30,11 @@ They replace the Pallas TPU kernels of that file:
 All three only stream bytes, so HBM bandwidth bounds them; the sources
 (``csrc/flexa_prox.cu``, ``csrc/compact_rows.cu``) say how each kernel
 is laid out for that.  The plain versions are
-:func:`repro_torch.kernels.ref.flexa_best_response_ref`,
-:func:`~repro_torch.kernels.ref.gather_rows_ref` and
-:func:`~repro_torch.kernels.ref.scatter_rows_ref`, also reachable as
-``best_response.plain`` / ``gather_rows.plain`` / ``scatter_rows.plain``.
+the ``*_ref`` functions of :mod:`repro_torch.kernels.ref`
+(``flexa_best_response_ref``, ``flexa_apply_ref``,
+``flexa_best_response_batched_ref``, ``flexa_apply_batched_ref``,
+``gather_rows_ref``, ``scatter_rows_ref``), also reachable as each
+wrapper's ``.plain``.
 
 Build: each source into its own shared library, through
 :mod:`repro_torch.kernels.build` at first use (nothing is built or
@@ -30,9 +42,12 @@ imported at module import), loaded with ``ctypes``.  A failed build or
 launch raises; there is no fallback.
 
 Each wrapper counts its launches in a plain integer attribute,
-``best_response.launches`` / ``gather_rows.launches`` /
-``scatter_rows.launches``, incremented only where the kernel is
-launched.
+``best_response.launches``, ``apply_update.launches`` and so on,
+incremented only where the kernel is launched; :data:`KERNEL_NAMES`
+names each wrapper's device kernels as the profiler records them.  The
+wrappers read no value back to the host and launch on the current
+stream, so a solver iteration that calls them can be captured in a CUDA
+graph.
 """
 from __future__ import annotations
 
@@ -56,6 +71,20 @@ BR_THREADS, BR_ELEMS_PER_THREAD = 256, 8
 #: Resident blocks per SM the best-response grid is capped at.
 BR_BLOCKS_PER_SM = 8
 
+#: Substrings of the device-kernel names (as ``torch.profiler`` records
+#: them) of each wrapper of this module.
+KERNEL_NAMES = {"gather_rows": ("gather_wide", "gather_narrow"),
+                "scatter_rows": ("scatter_narrow",),
+                "best_response": ("flexa_best_response_kernel",),
+                "apply_update": ("flexa_apply_update_kernel",),
+                "batched_best_response":
+                    ("flexa_batched_best_response_kernel",),
+                "batched_apply_update":
+                    ("flexa_batched_apply_update_kernel",)}
+
+#: d modes of the batched kernels (enum DMode in flexa_prox.cu).
+D_SCALAR, D_INSTANCE, D_DENSE = 0, 1, 2
+
 _lib = None
 _br_lib = None
 
@@ -70,6 +99,16 @@ def br_library() -> ctypes.CDLL:
                                              ctypes.c_float, vp, vp,
                                              ctypes.c_longlong, ci, vp]
         lib.best_response_launch.restype = ci
+        fl, ll = ctypes.c_float, ctypes.c_longlong
+        lib.apply_update_launch.argtypes = [vp, vp, ci, vp, ci, fl, vp, vp,
+                                            ll, ci, vp]
+        lib.apply_update_launch.restype = ci
+        lib.batched_best_response_launch.argtypes = [
+            vp, vp, ci, vp, ci, vp, ci, fl, vp, vp, ll, ci, ci, vp]
+        lib.batched_best_response_launch.restype = ci
+        lib.batched_apply_update_launch.argtypes = [
+            vp, vp, ci, vp, ci, vp, ci, fl, vp, ci, vp, ll, ci, ci, vp]
+        lib.batched_apply_update_launch.restype = ci
         _br_lib = lib
     return _br_lib
 
@@ -124,6 +163,172 @@ def best_response(x: torch.Tensor, g: torch.Tensor, d: torch.Tensor,
     _raise_on(rc, "best_response")
     best_response.launches += 1
     return z, work[blocks + 1]
+
+
+def _check_cuda(dev, named, dtypes=(torch.float32,)) -> None:
+    """Each (name, tensor) of ``named`` on ``dev``, contiguous, of a dtype
+    in ``dtypes`` (None entries are skipped)."""
+    for name, t in named:
+        if t is None:
+            continue
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name} must be a CUDA tensor on {dev}, got "
+                             f"{t.device}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name} dtype {t.dtype} not in {dtypes}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_xg(x: torch.Tensor, g: torch.Tensor) -> None:
+    _check_cuda(x.device, (("x", x),), BR_DTYPES)
+    _check_cuda(x.device, (("g", g),), (x.dtype,))
+    if g.shape != x.shape:
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, g "
+                         f"{tuple(g.shape)}")
+
+
+def apply_update(x: torch.Tensor, g: torch.Tensor, d: torch.Tensor,
+                 c: float, gamma_mask: torch.Tensor,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """CUDA  x + γ·m·(soft(x − g/d, c/d) − x)  → ``out`` (a new tensor of
+    x's shape and dtype when None; ``x`` itself updates in place).
+
+    ``x`` and ``g`` contiguous, of one shape and dtype (fp32 or bf16);
+    ``d`` a 0-d fp32 tensor or contiguous fp32 of x's shape;
+    ``gamma_mask`` a 0-d fp32 tensor (read by the kernel through its
+    pointer); all on one CUDA device.  ``c`` a host float ≥ 0.
+    """
+    _check_xg(x, g)
+    dev = x.device
+    _check_cuda(dev, (("d", d), ("gamma_mask", gamma_mask)))
+    dense = d.dim() > 0
+    if (dense and d.shape != x.shape) or gamma_mask.dim() != 0:
+        raise ValueError(f"d must be 0-d or of x's shape {tuple(x.shape)}, "
+                         f"gamma_mask 0-d; got {tuple(d.shape)}, "
+                         f"{tuple(gamma_mask.shape)}")
+    if out is None:
+        out = torch.empty_like(x)
+    _check_cuda(dev, (("out", out),), (x.dtype,))
+    if out.shape != x.shape:
+        raise ValueError(f"out {tuple(out.shape)} is not x's shape")
+    n = x.numel()
+    if n == 0:
+        return out
+    blocks = best_response_blocks(
+        n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = br_library().apply_update_launch(
+            x.data_ptr(), g.data_ptr(), DTYPE_CODES[x.dtype], d.data_ptr(),
+            int(dense), float(c), gamma_mask.data_ptr(), out.data_ptr(), n,
+            blocks, stream)
+    _raise_on(rc, "apply_update")
+    apply_update.launches += 1
+    return out
+
+
+def batched_blocks(n: int, B: int, sm_count: int) -> int:
+    """Blocks per instance of the batched kernels: a function of n, B and
+    the SM count only (e2's summation order is then fixed), the whole
+    grid capped near 8 blocks per SM."""
+    per_block = BR_THREADS * BR_ELEMS_PER_THREAD
+    cap = max(1, BR_BLOCKS_PER_SM * sm_count // B)
+    return max(1, min(-(-n // per_block), cap))
+
+
+def _instance_arg(v, B: int, dev, name: str):
+    """(pointer or None, stride, host value) of a per-instance scalar: a
+    host float, or a 0-d or (B,) contiguous fp32 tensor on ``dev``."""
+    if not isinstance(v, torch.Tensor):
+        return None, 0, float(v)
+    _check_cuda(dev, ((name, v),))
+    if v.dim() == 0:
+        return v.data_ptr(), 0, 0.0
+    if v.shape != (B,):
+        raise ValueError(f"{name} must be a scalar or ({B},), got "
+                         f"{tuple(v.shape)}")
+    return v.data_ptr(), 1, 0.0
+
+
+def _batched_args(x, g, d, c):
+    """Checks of a batched call → (B, n, d mode, c pointer, c stride, c
+    host value)."""
+    _check_xg(x, g)
+    if x.dim() != 2:
+        raise ValueError(f"x must be (B, n), got {tuple(x.shape)}")
+    B, n = x.shape
+    if B > 65535:
+        raise ValueError(f"B = {B} instances exceed the grid's 65535")
+    dev = x.device
+    _check_cuda(dev, (("d", d),))
+    if d.dim() == 0:
+        mode = D_SCALAR
+    elif d.shape == (B,):
+        mode = D_INSTANCE
+    elif d.shape == x.shape:
+        mode = D_DENSE
+    else:
+        raise ValueError(f"d must be (), ({B},) or {tuple(x.shape)}, got "
+                         f"{tuple(d.shape)}")
+    return (B, n, mode) + _instance_arg(c, B, dev, "c")
+
+
+def batched_best_response(x: torch.Tensor, g: torch.Tensor,
+                          d: torch.Tensor, c
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """CUDA batched best response → (z (B, n) fp32, e2 (B,) fp32).
+
+    ``x``, ``g`` contiguous (B, n), fp32 or bf16, one dtype; ``d`` fp32
+    (), (B,) or (B, n); ``c`` a host float or an fp32 0-d or (B,) tensor;
+    all on one CUDA device.  z = soft(x − g/d, (1/d)·c) per instance.
+    """
+    B, n, mode, cp, cs, ch = _batched_args(x, g, d, c)
+    dev = x.device
+    z = torch.empty((B, n), dtype=torch.float32, device=dev)
+    if B == 0 or n == 0:
+        return z, torch.zeros((B,), dtype=torch.float32, device=dev)
+    blocks = batched_blocks(
+        n, B, torch.cuda.get_device_properties(dev).multi_processor_count)
+    # per-block partials, the per-instance ticket counters, e2
+    work = torch.empty(B * (blocks + 2), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = br_library().batched_best_response_launch(
+            x.data_ptr(), g.data_ptr(), DTYPE_CODES[x.dtype], d.data_ptr(),
+            mode, cp, cs, ch, z.data_ptr(), work.data_ptr(), n, B, blocks,
+            stream)
+    _raise_on(rc, "batched_best_response")
+    batched_best_response.launches += 1
+    return z, work[B * (blocks + 1):]
+
+
+def batched_apply_update(x: torch.Tensor, g: torch.Tensor, d: torch.Tensor,
+                         c, gamma_mask: torch.Tensor) -> torch.Tensor:
+    """CUDA batched  x + γᵢ·mᵢ·(z − x)  → a new (B, n) tensor in x's
+    dtype, z as :func:`batched_best_response` computes it.
+
+    Arguments as there; ``gamma_mask`` an fp32 0-d or (B,) tensor (read
+    by the kernel through its pointer).
+    """
+    B, n, mode, cp, cs, ch = _batched_args(x, g, d, c)
+    if not isinstance(gamma_mask, torch.Tensor):
+        raise TypeError("gamma_mask must be a 0-d or (B,) fp32 tensor")
+    gp, gs, _ = _instance_arg(gamma_mask, B, x.device, "gamma_mask")
+    out = torch.empty_like(x)
+    if B == 0 or n == 0:
+        return out
+    dev = x.device
+    blocks = batched_blocks(
+        n, B, torch.cuda.get_device_properties(dev).multi_processor_count)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = br_library().batched_apply_update_launch(
+            x.data_ptr(), g.data_ptr(), DTYPE_CODES[x.dtype], d.data_ptr(),
+            mode, cp, cs, ch, gp, gs, out.data_ptr(), n, B, blocks, stream)
+    _raise_on(rc, "batched_apply_update")
+    batched_apply_update.launches += 1
+    return out
 
 
 def library() -> ctypes.CDLL:
@@ -218,6 +423,12 @@ def scatter_rows(vals: torch.Tensor, inv: torch.Tensor,
 
 best_response.launches = 0
 best_response.plain = ref.flexa_best_response_ref
+apply_update.launches = 0
+apply_update.plain = ref.flexa_apply_ref
+batched_best_response.launches = 0
+batched_best_response.plain = ref.flexa_best_response_batched_ref
+batched_apply_update.launches = 0
+batched_apply_update.plain = ref.flexa_apply_batched_ref
 gather_rows.launches = 0
 gather_rows.plain = ref.gather_rows_ref
 scatter_rows.launches = 0

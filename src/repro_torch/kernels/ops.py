@@ -52,12 +52,93 @@ def flexa_best_response(x: torch.Tensor, g: torch.Tensor, d, c):
     if x.device.type == "cpu":
         return ref.flexa_best_response_ref(x, g, d, c)
     if x.device.type == "cuda":
-        if not isinstance(d, torch.Tensor):
-            d = torch.tensor(float(d), dtype=torch.float32, device=x.device)
-        _on(x.device, d)
         return _fp.best_response(x.contiguous(), g.contiguous(),
-                                 d.contiguous(), float(c))
+                                 _on_card(d, x.device), float(c))
     raise ValueError(f"no best_response kernel for device {x.device}")
+
+
+def _on_card(v, device) -> torch.Tensor:
+    """A float or tensor argument as a contiguous tensor on ``device`` (a
+    float is copied there as fp32: callers on a hot path pass tensors
+    already on the card, so nothing syncs)."""
+    if not isinstance(v, torch.Tensor):
+        return torch.tensor(float(v), dtype=torch.float32, device=device)
+    _on(device, v)
+    return v.contiguous()
+
+
+def _weight(c, device):
+    """c of a batched call: a host float as it is (the kernel takes it by
+    value, so a captured solver iteration copies nothing), a tensor on
+    ``device``."""
+    return _on_card(c, device) if isinstance(c, torch.Tensor) else float(c)
+
+
+def flexa_apply(x: torch.Tensor, g: torch.Tensor, d, c, gamma_mask, *,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+    """x + γ·m·(x̂(x) − x) fused, in x's dtype, x̂ = soft(x − g/d, c/d).
+
+    ``gamma_mask`` is γ·mᵢ premultiplied (a float or a 0-d tensor), ``d``
+    a scalar or a tensor of x's shape, ``c`` a host float.  The result
+    goes into ``out`` (``x`` itself for the optimizer's in-place update),
+    or a new tensor when None.
+    """
+    _on(x.device, g)
+    if x.device.type == "cpu":
+        return ref.flexa_apply_ref(x, g, d, c, gamma_mask, out=out)
+    if x.device.type == "cuda":
+        return _fp.apply_update(x.contiguous(), g.contiguous(),
+                                _on_card(d, x.device), float(c),
+                                _on_card(gamma_mask, x.device), out=out)
+    raise ValueError(f"no apply_update kernel for device {x.device}")
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """A (B, ...) bucket as contiguous (B, n) rows."""
+    return t.contiguous().reshape(t.shape[0], -1)
+
+
+def _batched_d(d, x: torch.Tensor) -> torch.Tensor:
+    d = _on_card(d, x.device)
+    return _rows(d) if d.dim() > 1 else d
+
+
+def flexa_best_response_batched(x: torch.Tensor, g: torch.Tensor, d, c):
+    """Per-instance z = soft(x − g/d, (1/d)·c) and e2 over a (B, ...)
+    bucket → (z fp32 of x's shape, e2 (B,)).
+
+    ``d`` a scalar, (B,) or dense of x's shape; ``c`` a float or a 0-d or
+    (B,) tensor — each instance of a bucket carries its own weight.  The
+    threshold rounds as the solver's step S.2 does (see
+    :func:`repro_torch.kernels.ref.flexa_best_response_batched_ref`).  No
+    column padding: the CUDA kernel masks a ragged n itself.
+    """
+    _on(x.device, g)
+    if x.device.type == "cpu":
+        return ref.flexa_best_response_batched_ref(x, g, d, c)
+    if x.device.type == "cuda":
+        z, e2 = _fp.batched_best_response(_rows(x), _rows(g),
+                                          _batched_d(d, x),
+                                          _weight(c, x.device))
+        return z.view(x.shape), e2
+    raise ValueError(f"no batched_best_response kernel for device "
+                     f"{x.device}")
+
+
+def flexa_apply_batched(x: torch.Tensor, g: torch.Tensor, d, c,
+                        gamma_mask) -> torch.Tensor:
+    """Fused batched update x + γᵢ·mᵢ·(x̂ − x) over a (B, ...) bucket, in
+    x's dtype; x̂ as :func:`flexa_best_response_batched` computes it and
+    ``gamma_mask`` a float or a 0-d or (B,) tensor."""
+    _on(x.device, g)
+    if x.device.type == "cpu":
+        return ref.flexa_apply_batched_ref(x, g, d, c, gamma_mask)
+    if x.device.type == "cuda":
+        return _fp.batched_apply_update(
+            _rows(x), _rows(g), _batched_d(d, x), _weight(c, x.device),
+            _on_card(gamma_mask, x.device)).view(x.shape)
+    raise ValueError(f"no batched_apply_update kernel for device "
+                     f"{x.device}")
 
 
 def gather_blocks(src: torch.Tensor, idx) -> torch.Tensor:

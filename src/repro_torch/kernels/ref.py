@@ -2,7 +2,12 @@
 
 ``flexa_best_response_ref`` is the contract of
 :func:`repro_torch.kernels.flexa_prox.best_response`: z bit for bit, e2
-up to summation order.
+up to summation order; ``flexa_apply_ref`` (the FLEXA optimizer's
+update), ``flexa_best_response_batched_ref`` and
+``flexa_apply_batched_ref`` (steps S.2 and S.4 of the solver's
+iteration) are those of ``apply_update``, ``batched_best_response`` and
+``batched_apply_update`` there, with the roundings of the code they
+replaced written out.
 ``gather_rows_ref`` / ``scatter_rows_ref`` are the contracts the CUDA
 kernels of :mod:`repro_torch.kernels.flexa_prox` meet bit for bit,
 written as the reference's ``repro.kernels.ref`` oracle is: an index
@@ -35,15 +40,98 @@ def flexa_best_response_ref(x: torch.Tensor, g: torch.Tensor, d, c
     typed ``c`` is: torch's ``float / tensor`` would multiply by a
     reciprocal instead, which rounds differently.
     """
+    xf, z = _response(x, g, d, c)
+    e2 = torch.sum((z - xf) ** 2)
+    return z, e2
+
+
+def _response(x, g, d, c):
+    """(x in fp32, z) of :func:`flexa_best_response_ref`, without e2."""
     f32 = torch.float32
     xf = x.to(f32)
     gf = g.to(f32)
     d = torch.as_tensor(d, dtype=f32, device=x.device)
     w = xf - gf / d
     t = torch.as_tensor(c, dtype=f32, device=x.device) / d
-    z = torch.sign(w) * torch.clamp_min(torch.abs(w) - t, 0.0)
-    e2 = torch.sum((z - xf) ** 2)
-    return z, e2
+    return xf, torch.sign(w) * torch.clamp_min(torch.abs(w) - t, 0.0)
+
+
+def flexa_apply_ref(x, g, d, c, gamma_mask, out=None) -> torch.Tensor:
+    """Fused damped masked update  x + γ·m·(x̂(x) − x)  in x's dtype.
+
+    The FLEXA optimizer's update term for term: z as
+    :func:`flexa_best_response_ref` computes it, then (z − x), then
+    · ``gamma_mask`` (γ·mᵢ premultiplied: a float or a 0-d tensor), then
+    x +, each rounded in fp32, and the sum rounded once to x's dtype.
+    Written into ``out`` (``x`` itself for the optimizer's in-place
+    update) when given, else into a new tensor.
+    """
+    xf, z = _response(x, g, d, c)
+    z.sub_(xf).mul_(gamma_mask).add_(xf)
+    if out is None:
+        return z.to(x.dtype)
+    return out.copy_(z)
+
+
+def _instance_col(v, B: int, name: str):
+    """A per-instance scalar as the batched plain versions broadcast it:
+    a float or 0-d tensor as it is, a (B,) tensor as a (B, 1) column."""
+    if isinstance(v, torch.Tensor) and v.dim() > 0:
+        if v.shape != (B,):
+            raise ValueError(f"{name} must be a scalar or (B,) = ({B},), "
+                             f"got {tuple(v.shape)}")
+        return v.reshape(B, 1)
+    return v
+
+
+def _batched_response(x, g, d, c):
+    """(x (B, n) in fp32, z (B, n)) of the batched plain versions."""
+    f32 = torch.float32
+    B = x.shape[0]
+    xf = x.reshape(B, -1).to(f32)
+    gf = g.reshape(B, -1).to(f32)
+    if isinstance(d, torch.Tensor) and d.dim() > 1:
+        if d.shape != x.shape:
+            raise ValueError(f"dense d must match x {tuple(x.shape)}, got "
+                             f"{tuple(d.shape)}")
+        d = d.reshape(B, -1)
+    else:
+        d = _instance_col(torch.as_tensor(d, dtype=f32, device=x.device),
+                          B, "d")
+    w = xf - gf / d
+    t = (1.0 / d) * _instance_col(c, B, "c")
+    return xf, torch.sign(w) * torch.clamp_min(torch.abs(w) - t, 0.0)
+
+
+def flexa_best_response_batched_ref(x, g, d, c
+                                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-instance best response over a (B, ...) bucket → (z fp32 of x's
+    shape, e2 (B,)).
+
+    ``d`` is (), (B,) or dense of x's shape; ``c`` a float, a 0-d or a
+    (B,) tensor.  The FLEXA solver's step S.2 as it was written in the
+    chain (``w = x − g/d``, then the prox at weight (1/d)·c): the
+    threshold is the product of the reciprocal and c, not the oracle's
+    c / d.  The two differ in the last bit for some d, and the λ-path's
+    tolerance sits at the fp32 noise floor, so the solver keeps its own
+    rounding (``tests/test_torch_batch_cv.py`` pins the difference).
+    """
+    xf, z = _batched_response(x, g, d, c)
+    e2 = ((z - xf) ** 2).sum(-1)
+    return z.reshape(x.shape), e2
+
+
+def flexa_apply_batched_ref(x, g, d, c, gamma_mask) -> torch.Tensor:
+    """Fused batched update  x + γᵢ·mᵢ·(x̂(x) − x)  in x's dtype.
+
+    z as :func:`flexa_best_response_batched_ref` computes it; then the
+    solver's step S.4 under the full rule, ``x + γ·(z − x)``, with
+    ``gamma_mask`` a float, a 0-d or a (B,) tensor (γᵢ·mᵢ per instance).
+    """
+    B = x.shape[0]
+    xf, z = _batched_response(x, g, d, c)
+    new = xf + _instance_col(gamma_mask, B, "gamma_mask") * (z - xf)
+    return new.to(x.dtype).reshape(x.shape)
 
 
 def gather_rows_ref(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -18,8 +18,10 @@ every point runs through the batched engine
   (``repro_torch.solvers.compaction``, through the CUDA gather/scatter
   kernels on the card) and solves the narrow problem.
 
-The lockstep K-fold sweep (``_solve_path_batched``, the CV workload) is
-not ported yet.
+``_solve_path_batched`` runs B instances that share one shape signature
+(the K-fold cross-validation workload: one fold per instance) down one
+grid in lockstep — one batched solve per point (and per KKT round), with
+per-instance warm starts and screening masks.
 
 Work accounting matches the reference: a **device row-iteration** is one
 instance-row advanced one FLEXA iteration, and ``device_flops`` prices
@@ -459,3 +461,159 @@ def _solve_chunk(problem, fam, cs, c_prev, x_prev, scores_prev, cfg, *,
         "program_widths": program_widths,
         "scores_last": None if scores is None else scores[-1],
     }
+
+
+def _solve_path_batched(problems, lambdas=None, *, n_points: int = 20,
+                        lam_min_ratio: float = 0.01,
+                        cfg: SolverConfig | None = None,
+                        warm: bool = True, screen: bool = True,
+                        kkt_slack: float = DEFAULT_KKT_SLACK,
+                        tol_schedule=None, clock=None) -> list[PathResult]:
+    """Sweep ONE λ-grid over B same-signature instances in lockstep.
+
+    The cross-validation workhorse: each fold is one instance; every grid
+    point is one ``_solve_batched`` call over all folds (per-fold warm
+    start and screening mask).  The shared grid is derived from the
+    *largest* per-instance λ_max, so every fold's path starts at a
+    certified zero solution.  Returns one :class:`PathResult` per
+    instance; ``row_iters`` (whole-sweep device total) is recorded on
+    each result's ``meta["sweep_row_iters"]`` as well as split per point.
+    """
+    if not problems:
+        raise ValueError("need at least one instance")
+    cfg = cfg or SolverConfig()
+    clock = clock if clock is not None else time.perf_counter
+    family = infer_family(problems[0])
+    fam = get_family(family)
+    if screen and not fam.screenable:
+        raise ValueError(f"family {family!r} has no screening hook")
+    B = len(problems)
+    n, bs = problems[0].n, problems[0].block_size
+    n_blocks = problems[0].n_blocks
+
+    lam_maxes = [lambda_max(p) for p in problems]
+    lam_max = max(lam_maxes)
+    if lambdas is None:
+        grid = geometric_grid(lam_max, n_points=n_points,
+                              lam_min_ratio=lam_min_ratio)
+    else:
+        grid = validate_grid(lambdas)
+    P = grid.shape[0]
+    tols = _resolve_tol_schedule(tol_schedule, cfg, P)
+
+    xs = np.zeros((B, P, n), np.float32)
+    V = np.zeros((B, P)); iters = np.zeros((B, P), np.int64)
+    conv = np.zeros((B, P), bool)
+    active_ct = np.zeros((B, P), np.int64)
+    reports: list[list[ScreenReport]] = [[] for _ in range(B)]
+    sweep_row_iters = 0
+    sweep_flops = 0
+    m = int(problems[0].data[fam.data_keys[0]].shape[0])
+    per_point_rows = np.zeros(P, np.int64)
+    signatures: set = set()     # solver configs the sweep ran
+
+    c_prev = lam_max
+    x_prev = np.zeros((B, n), np.float32)
+    scores_prev = (np.stack([
+        block_scores(fam, _problem_at(problems[i], lam_max), x_prev[i])
+        for i in range(B)]) if screen else None)
+
+    t0 = clock()
+    for k in range(P):
+        ck = float(grid[k])
+        cfg_k = _cfg_at_tol(cfg, float(tols[k]))
+        signatures.add(cfg_k)
+        probs_k = [_problem_at(problems[i], ck) for i in range(B)]
+        # A fold whose own λ_max is below ck has the certified solution 0;
+        # its mask is emptied below (the solver confirms it in a handful
+        # of iterations from x0 = 0 rather than being mis-certified).
+        trivial = np.array([ck >= lam_maxes[i] * (1.0 - 1e-12)
+                            for i in range(B)])
+        active = np.stack([
+            np.ones(n_blocks, np.float64) if not screen else
+            _screen_mask(fam, scores_prev[i], ck, c_prev, x_prev[i],
+                         n_blocks, bs, screen)
+            if not trivial[i] else np.zeros(n_blocks, np.float64)
+            for i in range(B)])
+        # A fully-screened instance (trivial point) still needs a
+        # nonempty mask for the solver to terminate on: give it one block
+        # — it converges immediately at x = 0.
+        empty = active.sum(axis=1) == 0
+        active[empty, 0] = 1.0
+        screened_out0 = (n_blocks - active.sum(axis=1)).astype(int)
+
+        x0 = (x_prev if warm else np.zeros((B, n), np.float32)).copy()
+        total_iters = np.zeros(B, np.int64)
+        rounds = np.zeros(B, np.int64)
+        violations = np.zeros(B, np.int64)
+        round_no = 0
+        while True:
+            mask_c = np.stack([expand_blocks(active[i], bs)
+                               for i in range(B)])
+            with obs.span("path.kkt_round", cat="path", k=k,
+                          round=round_no, B=B):
+                r = _solve_batched(probs_k, x0=x0 * mask_c, cfg=cfg_k,
+                                   active=mask_c if screen else None)
+            round_no += 1
+            it = np.asarray(r.iters, np.int64)
+            total_iters += it
+            sweep_row_iters += int(it.max()) * B
+            sweep_flops += int(it.max()) * B * m * n
+            per_point_rows[k] += int(it.max()) * B
+            x_hat = r.x.cpu().numpy()
+            if not screen:
+                scores = None
+                break
+            scores, done = _kkt_round(fam, probs_k, [ck] * B, x_hat,
+                                      active, rounds, violations,
+                                      kkt_slack)
+            if done:
+                break
+            x0 = x_hat
+
+        xs[:, k] = x_hat
+        iters[:, k] = total_iters
+        conv[:, k] = np.asarray(r.converged, bool)
+        active_ct[:, k] = active.sum(axis=1).astype(int)
+        for i in range(B):
+            V[i, k] = float(probs_k[i].v(torch.as_tensor(x_hat[i]).to(
+                problems[i].device)))
+            reports[i].append(ScreenReport(
+                n_blocks=n_blocks, screened_out=int(screened_out0[i]),
+                kkt_rounds=int(rounds[i]),
+                violations=int(violations[i])))
+        c_prev = ck
+        x_prev = x_hat
+        scores_prev = scores
+
+    wall = clock() - t0
+    # One sweep-wide ledger (the device work is shared by all folds in
+    # lockstep); each result carries a copy so any single fold can be
+    # inspected standalone without double counting inside one result.
+    sweep_live = int(iters.sum())
+    sweep_led = CostLedger(
+        row_iters=int(sweep_row_iters), live_iters=sweep_live,
+        device_flops=int(sweep_flops),
+        freeze_iters=int(sweep_row_iters) - sweep_live,
+        compiles=len(signatures))
+    results = []
+    for i in range(B):
+        supp = np.array([
+            int(np.count_nonzero(np.linalg.norm(
+                xs[i, p].reshape(n_blocks, bs), axis=-1)))
+            for p in range(P)], np.int64)
+        results.append(PathResult(
+            lambdas=grid, x=xs[i], V=V[i], iters=iters[i],
+            converged=conv[i], support=supp, active_blocks=active_ct[i],
+            screened=reports[i],
+            row_iters=int(per_point_rows.sum()),
+            device_flops=int(sweep_flops),
+            lam_max=lam_maxes[i],
+            meta={"family": family, "warm": warm, "screen": screen,
+                  "instances": B, "instance": i,
+                  "sweep_row_iters": int(sweep_row_iters),
+                  "tol_schedule": (None if tol_schedule is None
+                                   else [float(t) for t in tols]),
+                  "wall_s": wall},
+            ledger=sweep_led.copy()))
+    return results

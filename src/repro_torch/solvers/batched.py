@@ -83,7 +83,9 @@ def make_batched_solver(spec: BatchedProblemSpec, cfg: SolverConfig):
 
     ``data`` is the tuple of family arrays, each either shared by the
     batch (e.g. ``A`` (m, n)) or stacked (``A`` (B, m, n)); ``c`` (B,),
-    ``x0`` (B, n), ``active`` an optional (B, n) freeze mask.
+    ``x0`` (B, n), ``active`` an optional (B, n) freeze mask (None
+    freezes nothing, with the numbers of an all-ones mask, and lets the
+    full rule take the fused update).
     """
     fam = get_family(spec.family)
 
@@ -92,8 +94,6 @@ def make_batched_solver(spec: BatchedProblemSpec, cfg: SolverConfig):
         tau_base = _tau_base(fam.half_curv(col_sq), cfg, spec.n)
         problem = family_problem(data, c.unsqueeze(-1), spec,
                                  col_sq=col_sq)
-        if active is None:
-            active = torch.ones_like(x0)
 
         def step(state: FlexaState) -> FlexaState:
             return flexa_iteration(problem, cfg, tau_base, state,
@@ -173,8 +173,6 @@ def _solve_batched(problems: Sequence[Problem], x0=None,
     col_sq = fam.col_sq(*data)
     tau_base = _tau_base(fam.half_curv(col_sq), cfg, spec.n)
     problem = family_problem(data, c.unsqueeze(-1), spec, col_sq=col_sq)
-    if active is None:
-        active = torch.ones_like(x0)
     state = _flexa.init_state(problem, x0, cfg)
     done = torch.zeros((B,), dtype=torch.bool, device=device)
     hist: dict[str, list] = {k: [] for k in

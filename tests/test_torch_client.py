@@ -12,9 +12,8 @@ from repro.client import (FlexaClient as JClient, PathSpec as JPathSpec,
                           SoloSpec as JSoloSpec)
 from repro.config.base import SolverConfig as JSolverConfig
 from repro.problems.lasso import nesterov_instance as jnesterov
-from repro_torch.client import (BatchSpec, CVSpec, FlexaClient,
-                                NotPortedError, PathSpec, SoloSpec,
-                                SpecError, UnknownBackendError,
+from repro_torch.client import (FlexaClient, NotPortedError, PathSpec,
+                                SoloSpec, SpecError, UnknownBackendError,
                                 solve_request_of)
 from repro_torch.config.base import ClientConfig, SolverConfig
 from repro_torch.problems.families import problem_from_arrays
@@ -85,8 +84,7 @@ def test_default_device_is_the_card(monkeypatch):
 
 def test_unported_parts_raise(pair):
     _, pt = pair
-    for make in (lambda: BatchSpec([pt]), lambda: CVSpec([pt]),
-                 lambda: solve_request_of(pt),
+    for make in (lambda: solve_request_of(pt),
                  lambda: FlexaClient(device="cpu", backend="continuous")):
         with pytest.raises(NotPortedError, match="not yet ported"):
             make()

@@ -236,3 +236,151 @@ def test_best_response_grid_depends_on_numel_and_sms_only():
     assert blocks(2049, 132) == 2
     assert blocks(2560 * 6912, 132) == 8 * 132
     assert blocks(50304 * 2560, 132) == 8 * 132
+
+
+# ------------------------------------------------------------------ #
+# apply_update, batched_best_response, batched_apply_update          #
+# ------------------------------------------------------------------ #
+#: (shape, dense d, c, γ·m, x dtype) of apply_update: odd sizes, scalar
+#: and dense d, c = 0 and > 0, γ·m = 0, 1 and 0.9, fp32 and bf16 x.
+APPLY_CASES = [
+    ((1,), False, 0.0, 0.9, "float32"),
+    ((1000,), False, 0.01, 1.0, "float32"),
+    ((37, 53), True, 0.05, 0.9, "float32"),
+    ((37, 53), True, 0.0, 0.0, "float32"),
+    ((3, 64, 160), False, 1e-3, 0.9, "bfloat16"),
+    ((517,), True, 0.02, 0.9, "bfloat16"),
+]
+
+#: (B, instance shape, d kind, c kind, γ·m kind): d scalar, per instance
+#: or dense; c and γ·m scalar or per instance; ragged n (no 512 padding).
+BATCHED_CASES = [
+    (1, (1,), "scalar", "scalar", "scalar"),
+    (3, (1000,), "dense", "instance", "instance"),
+    (2, (37, 53), "instance", "scalar", "instance"),
+    (4, (517,), "dense", "scalar", "scalar"),
+    (2, (8, 300), "scalar", "instance", "scalar"),
+]
+
+#: ≤ 2 fp32 ulps: the oracle's threshold is c/d, the port's (1/d)·c.
+ORACLE_TOL = dict(rtol=1e-6, atol=1e-7)
+
+
+def _tol(dtype):
+    """One bf16 ulp for bf16 results (a last-bit fp32 difference can move
+    the rounding to bf16), the oracle tolerance otherwise."""
+    return dict(rtol=2.0 ** -7, atol=1e-7) if dtype == "bfloat16" \
+        else ORACLE_TOL
+
+
+@pytest.mark.parametrize("shape,dense,c,gm,dtype", APPLY_CASES)
+def test_apply_update_matches_reference(shape, dense, c, gm, dtype):
+    (jx, jg, jd), (tx, tg, td) = _br_inputs(shape, dense, dtype,
+                                            seed=sum(shape) + 7)
+    want = jops.flexa_apply(jx, jg, jd, c, gm, force="interpret")
+    oracle = jref.flexa_apply_ref(jx, jg, jd, c, gm, 1.0)
+    np.testing.assert_allclose(np.asarray(want, np.float32),
+                               np.asarray(oracle, np.float32), **_tol(dtype))
+    got = tref.flexa_apply_ref(tx, tg, td, c, torch.tensor(gm))
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    for w in (want, oracle):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(w, np.float32), **_tol(dtype))
+    via_ops = tops.flexa_apply(tx, tg, td, c, gm)
+    assert torch.equal(via_ops, got)
+    x2 = tx.clone()
+    assert tops.flexa_apply(x2, tg, td, c, gm, out=x2) is x2
+    assert torch.equal(x2, got)
+
+
+def _batched_inputs(B, shape, dkind, ckind, gkind, seed):
+    rng = np.random.default_rng(seed)
+    full = (B,) + shape
+    x = rng.standard_normal(full).astype(np.float32)
+    g = (0.1 * rng.standard_normal(full)).astype(np.float32)
+    d = {"scalar": np.float32(1.7),
+         "instance": rng.uniform(0.5, 2.0, B).astype(np.float32),
+         "dense": rng.uniform(0.5, 2.0, full).astype(np.float32)}[dkind]
+    c = (rng.uniform(0.01, 0.1, B).astype(np.float32) if ckind == "instance"
+         else np.float32(0.05))
+    gm = (rng.uniform(0.5, 1.0, B).astype(np.float32) if gkind == "instance"
+          else np.float32(0.9))
+    j = tuple(jnp.asarray(a) for a in (x, g, d, c, gm))
+    t = tuple(torch.from_numpy(np.array(a)) for a in (x, g, d, c, gm))
+    return j, t
+
+
+@pytest.mark.parametrize("B,shape,dkind,ckind,gkind", BATCHED_CASES)
+def test_batched_kernels_match_reference(B, shape, dkind, ckind, gkind):
+    (jx, jg, jd, jc, jgm), (tx, tg, td, tc, tgm) = _batched_inputs(
+        B, shape, dkind, ckind, gkind, seed=B + len(shape))
+    zi, ei = jops.flexa_best_response_batched(jx, jg, jd, jc,
+                                              force="interpret")
+    zr, er = jref.flexa_best_response_batched_ref(jx, jg, jd, jc)
+    oi = jops.flexa_apply_batched(jx, jg, jd, jc, jgm, force="interpret")
+    orr = jref.flexa_apply_batched_ref(jx, jg, jd, jc, jgm)
+    for z, e2 in (tref.flexa_best_response_batched_ref(tx, tg, td, tc),
+                  tops.flexa_best_response_batched(tx, tg, td, tc)):
+        assert z.dtype == torch.float32 and z.shape == tx.shape
+        assert e2.shape == (B,) and e2.dtype == torch.float32
+        for zw, ew in ((zi, ei), (zr, er)):
+            np.testing.assert_allclose(z.numpy(), np.asarray(zw),
+                                       **ORACLE_TOL)
+            np.testing.assert_allclose(e2.numpy(), np.asarray(ew),
+                                       rtol=1e-5)
+    for o in (tref.flexa_apply_batched_ref(tx, tg, td, tc, tgm),
+              tops.flexa_apply_batched(tx, tg, td, tc, tgm)):
+        assert o.dtype == tx.dtype and o.shape == tx.shape
+        for w in (oi, orr):
+            np.testing.assert_allclose(o.numpy(), np.asarray(w),
+                                       **ORACLE_TOL)
+
+
+def test_batched_response_rounds_as_the_solver_not_the_oracle():
+    """The batched plain versions take the threshold as the solver's chain
+    does, (1/d)·c (a reciprocal, then a product); the single-tensor ones
+    and the reference's oracle take c/d.  The two differ in the last bit
+    for some d, and the batched version must take the chain's route."""
+    d = torch.linspace(0.3, 7.7, 4001)
+    c = 0.1
+    t_chain, t_oracle = (1.0 / d) * c, torch.tensor(c) / d
+    assert not torch.equal(t_chain, t_oracle)        # the two differ
+    x = torch.full((1, 4001), 0.5)
+    g = torch.zeros((1, 4001))
+    z, _ = tref.flexa_best_response_batched_ref(x, g, d[None], c)
+    np.testing.assert_array_equal(z[0].numpy(), (0.5 - t_chain).numpy())
+    z1, _ = tref.flexa_best_response_ref(x[0], g[0], d, c)
+    np.testing.assert_array_equal(z1.numpy(), (0.5 - t_oracle).numpy())
+    zj, _ = jref.flexa_best_response_batched_ref(
+        jnp.asarray(x.numpy()), jnp.asarray(g.numpy()),
+        jnp.asarray(d[None].numpy()), jnp.float32(c))
+    np.testing.assert_array_equal(np.asarray(zj)[0], z1.numpy())
+    np.testing.assert_allclose(z[0].numpy(), z1.numpy(), **ORACLE_TOL)
+
+
+def test_new_kernels_cpu_dispatch_never_touches_them():
+    before = (flexa_prox.apply_update.launches,
+              flexa_prox.batched_best_response.launches,
+              flexa_prox.batched_apply_update.launches)
+    x = torch.ones((2, 10))
+    tops.flexa_apply(x[0], x[0], 2.0, 0.1, 0.9)
+    tops.flexa_best_response_batched(x, x, 2.0, 0.1)
+    tops.flexa_apply_batched(x, x, 2.0, 0.1, 0.9)
+    assert (flexa_prox.apply_update.launches,
+            flexa_prox.batched_best_response.launches,
+            flexa_prox.batched_apply_update.launches) == before
+    assert flexa_prox._br_lib is None
+    assert flexa_prox.apply_update.plain is tref.flexa_apply_ref
+    assert flexa_prox.batched_best_response.plain \
+        is tref.flexa_best_response_batched_ref
+    assert flexa_prox.batched_apply_update.plain \
+        is tref.flexa_apply_batched_ref
+
+
+def test_batched_grid_depends_on_n_b_and_sms_only():
+    blocks = flexa_prox.batched_blocks
+    assert blocks(1, 1, 132) == 1 and blocks(2048, 8, 132) == 1
+    assert blocks(100_000, 8, 132) == 49
+    assert blocks(100_000, 1, 132) == 49
+    assert blocks(10**8, 8, 132) == 8 * 132 // 8
+    assert blocks(10**8, 2000, 132) == 1

@@ -17,7 +17,10 @@ within 2e-5 (the reference's ``tests/test_kernels.py`` tolerance), bf16
 within 2 bf16 ulps of each element plus that.  ``best_response``'s
 z is elementwise IEEE fp32 arithmetic in the plain version's order, so
 it equals the plain z bit for bit; its e2 sums in another order: within
-1e-5 relative.
+1e-5 relative.  The same holds for ``batched_best_response``, and
+``apply_update`` / ``batched_apply_update`` equal their plain versions
+bit for bit (elementwise, each op rounded as the plain version rounds
+it); a FLEXA iteration that calls them can be captured in a CUDA graph.
 """
 import numpy as np
 import pytest
@@ -109,6 +112,17 @@ def test_cuda_call_with_failed_build_raises(cuda, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError):
         tops.flexa_best_response(torch.ones(8, device=cuda),
                                  torch.ones(8, device=cuda), 1.0, 0.0)
+    with pytest.raises(RuntimeError):
+        tops.flexa_apply(torch.ones(8, device=cuda),
+                         torch.ones(8, device=cuda), 1.0, 0.0, 0.9)
+    with pytest.raises(RuntimeError):
+        tops.flexa_best_response_batched(torch.ones((2, 8), device=cuda),
+                                         torch.ones((2, 8), device=cuda),
+                                         1.0, 0.1)
+    with pytest.raises(RuntimeError):
+        tops.flexa_apply_batched(torch.ones((2, 8), device=cuda),
+                                 torch.ones((2, 8), device=cuda), 1.0, 0.1,
+                                 0.9)
     x = torch.ones((1, 8, 1, 4), device=cuda)
     with pytest.raises(RuntimeError):
         tops.ssd_scan(x, torch.ones((1, 8, 1), device=cuda),
@@ -535,3 +549,168 @@ def test_reduced_dense_serves_on_the_card_through_the_kernel(cuda, arch):
     res0 = ServeEngine(cfg, cpu, max_len=48, device="cpu").generate(
         prompts, max_new_tokens=4)
     np.testing.assert_array_equal(res.tokens, res0.tokens)
+
+
+# ------------------------------------------------------------------ #
+# apply_update, batched_best_response, batched_apply_update          #
+# ------------------------------------------------------------------ #
+#: Instance shapes of the batched sweep: 1, ragged 1000, the solver's
+#: (8, 100000) bucket and one with n not a multiple of 8 (scalar loop).
+BATCHED_SHAPES = [(1, 1), (1, 1000), (8, 100_000), (3, 1001), (4, 517)]
+
+
+def batched_inputs(B, n, dkind, ckind, dtype, seed, device):
+    g0 = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((B, n), generator=g0).to(dtype)
+    g = (0.1 * torch.randn((B, n), generator=g0)).to(dtype)
+    d = {"scalar": torch.tensor(1.7),
+         "instance": torch.rand(B, generator=g0) * 1.5 + 0.5,
+         "dense": torch.rand((B, n), generator=g0) * 1.5 + 0.5}[dkind]
+    c = {"zero": 0.0, "host": 0.05,
+         "instance": torch.rand(B, generator=g0) * 0.1}[ckind]
+    move = (lambda t: t.to(device) if isinstance(t, torch.Tensor) else t)
+    return tuple(move(t) for t in (x, g, d, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BR_SHAPES + [(1001,)], ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("c,gm", [(0.0, 0.9), (1e-3, 1.0), (1e-3, 0.0)])
+def test_apply_update_kernel_matches_plain_version(cuda, shape, dtype,
+                                                   dense, c, gm):
+    x, g, d = br_inputs(shape, getattr(torch, dtype), dense,
+                        seed=len(shape) + int(dense), device=cuda,
+                        offset=int(shape == (1001,)))
+    gmt = torch.tensor(gm, device=cuda)
+    n0 = flexa_prox.apply_update.launches
+    out = tops.flexa_apply(x, g, d, c, gmt)
+    torch.cuda.synchronize()
+    assert flexa_prox.apply_update.launches == n0 + 1
+    want = flexa_prox.apply_update.plain(x, g, d, c, gmt)
+    assert out.dtype == x.dtype and out.shape == x.shape
+    assert torch.equal(out, want)
+    assert torch.equal(tops.flexa_apply(x, g, d, c, gmt), out)
+    x2 = x.clone()
+    assert flexa_prox.apply_update(x2, g, d, c, gmt, out=x2) is x2
+    assert torch.equal(x2, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", BATCHED_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dkind", ["scalar", "instance", "dense"])
+@pytest.mark.parametrize("ckind", ["zero", "host", "instance"])
+def test_batched_kernels_match_plain_versions(cuda, B, n, dtype, dkind,
+                                              ckind):
+    x, g, d, c = batched_inputs(B, n, dkind, ckind, getattr(torch, dtype),
+                                seed=B + n, device=cuda)
+    gm = torch.rand(B, device=cuda) if ckind == "instance" else 0.9
+    n0 = (flexa_prox.batched_best_response.launches,
+          flexa_prox.batched_apply_update.launches)
+    z, e2 = tops.flexa_best_response_batched(x, g, d, c)
+    out = tops.flexa_apply_batched(x, g, d, c, gm)
+    torch.cuda.synchronize()
+    assert (flexa_prox.batched_best_response.launches,
+            flexa_prox.batched_apply_update.launches) == (n0[0] + 1,
+                                                          n0[1] + 1)
+    z0, e0 = flexa_prox.batched_best_response.plain(x, g, d, c)
+    assert z.dtype == torch.float32 and z.shape == x.shape
+    assert e2.shape == (B,) and torch.equal(z, z0)
+    assert bool(((e2 - e0).abs() <= 1e-5 * e0.abs()).all())
+    assert torch.equal(out, flexa_prox.batched_apply_update.plain(
+        x, g, d, c, gm))
+    z2, e22 = tops.flexa_best_response_batched(x, g, d, c)
+    assert torch.equal(z2, z) and torch.equal(e22, e2)
+
+
+@pytest.mark.cuda
+def test_batched_kernels_refuse_what_they_cannot_take(cuda):
+    x = torch.ones((2, 8), device=cuda)
+    d = torch.tensor(1.0, device=cuda)
+    bad = [
+        (x.cpu(), x, d, 0.1, ValueError),
+        (x, x, d.cpu(), 0.1, ValueError),
+        (x, x, d, torch.ones(2), ValueError),               # c on the CPU
+        (x, x, d, torch.ones(3, device=cuda), ValueError),   # c not (B,)
+        (x, x, torch.ones(3, device=cuda), 0.1, ValueError),
+        (x, x.half(), d, 0.1, TypeError),
+        (x.reshape(-1), x.reshape(-1), d, 0.1, ValueError),  # not (B, n)
+        (x.t(), x.t(), d, 0.1, ValueError),                  # not contiguous
+    ]
+    for xx, gg, dd, cc, err in bad:
+        with pytest.raises(err):
+            flexa_prox.batched_best_response(xx, gg, dd, cc)
+        with pytest.raises(err):
+            flexa_prox.batched_apply_update(xx, gg, dd, cc, 0.9)
+    with pytest.raises(ValueError):
+        flexa_prox.apply_update(x, x, d, 0.0, torch.ones(2, device=cuda))
+    with pytest.raises(TypeError):                 # γ·m is read on the card
+        flexa_prox.batched_apply_update(x, x, d, 0.1, 0.9)
+    with pytest.raises(ValueError):
+        flexa_prox.batched_apply_update(x, x, d, 0.1,
+                                        torch.ones(3, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["greedy", "jacobi"])
+def test_flexa_iteration_is_captured_in_a_cuda_graph(cuda, rule):
+    """One solver iteration (the fused S.2, and under the full rule the
+    fused S.4) captured in a CUDA graph and replayed gives the eager
+    iteration's bits."""
+    from repro_torch.config.base import SolverConfig
+    from repro_torch.core import flexa
+    from repro_torch.problems.lasso import nesterov_instance
+
+    p = nesterov_instance(m=200, n=1000, nnz_frac=0.05, seed=0, device=cuda)
+    cfg = SolverConfig(jacobi=rule == "jacobi", tau0=400.0,
+                       tau_adapt=False)
+    tau = flexa._base_tau(p, cfg)
+    state = flexa.init_state(p, torch.zeros(p.n, device=cuda), cfg)
+    state, _ = flexa.flexa_iteration(p, cfg, tau, state)   # x ≠ 0
+    eager, _ = flexa.flexa_iteration(p, cfg, tau, state)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flexa.flexa_iteration(p, cfg, tau, state)          # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    n0 = (flexa_prox.batched_best_response.launches,
+          flexa_prox.batched_apply_update.launches)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured, _ = flexa.flexa_iteration(p, cfg, tau, state)
+    assert flexa_prox.batched_best_response.launches == n0[0] + 1
+    assert flexa_prox.batched_apply_update.launches \
+        == n0[1] + (rule == "jacobi")
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured.x, eager.x)
+        assert torch.equal(captured.stat, eager.stat)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("jacobi", [False, True])
+def test_batch_spec_on_the_card_matches_the_cpu(cuda, jacobi):
+    """``BatchSpec`` on the card launches the batched best response once
+    per iteration (and the fused update under Jacobi) and agrees with
+    the CPU within 1e-5."""
+    from repro_torch.client import BatchSpec, FlexaClient
+    from repro_torch.config.base import SolverConfig
+    from repro_torch.problems.lasso import nesterov_instance
+
+    cfg = SolverConfig(max_iters=100, tol=-1.0, tau_adapt=False,
+                       jacobi=jacobi, tau0=60.0 if jacobi else 0.0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        probs = [nesterov_instance(m=20, n=64, nnz_frac=0.15, seed=s,
+                                   device=dev) for s in range(3)]
+        n0 = (flexa_prox.batched_best_response.launches,
+              flexa_prox.batched_apply_update.launches)
+        out[dev] = FlexaClient(device=dev, solver=cfg).run(
+            BatchSpec(problems=probs))
+        launched = (flexa_prox.batched_best_response.launches - n0[0],
+                    flexa_prox.batched_apply_update.launches - n0[1])
+        want = (100, 100 if jacobi else 0) if dev == "cuda" else (0, 0)
+        assert launched == want, (dev, launched)
+    np.testing.assert_allclose(out["cuda"].x, out["cpu"].x, atol=1e-5)

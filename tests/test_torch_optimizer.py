@@ -23,7 +23,7 @@ from repro.core import optimizer as JO
 from repro.kernels import ops as JK
 from repro.models import transformer as JT
 from repro_torch.config.base import TrainConfig
-from repro_torch.configs.registry import get_config
+from repro_torch.configs.registry import get_config, get_reduced
 from repro_torch.core import optimizer as O
 from repro_torch.kernels import ops as TK
 from repro_torch.models import transformer as T
@@ -271,3 +271,70 @@ def test_update_stays_on_the_device_side():
 def test_unknown_optimizer_raises():
     with pytest.raises(ValueError):
         O.get_optimizer(TrainConfig(optimizer="sgd"))
+
+
+def _kept_z_update(x, g, d, c, gm):
+    """The update as the optimizer wrote it while it kept every z: the
+    best response, then (z − x)·γm into z, then x + z in place (bf16: the
+    fp32 sum copied back)."""
+    z, _ = TK.flexa_best_response(x, g, d, c)
+    xf = x.to(torch.float32)
+    z.sub_(xf).mul_(gm)
+    if x.dtype == torch.float32:
+        x.add_(z)
+    else:
+        x.copy_(xf + z)
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("c,gm", [(0.0, 0.9), (1e-3, 1.0), (0.02, 0.0)])
+def test_fused_update_equals_the_kept_z_update(dtype, dense, c, gm):
+    """``flexa_apply`` into the parameter equals the former in-place
+    update bit for bit: z recomputed, the same three roundings."""
+    rng = np.random.default_rng(int(dense) + int(100 * gm))
+    shape = (37, 53)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        getattr(torch, dtype))
+    g = torch.from_numpy((0.1 * rng.standard_normal(shape)).astype(
+        np.float32)).to(x.dtype)
+    d = torch.from_numpy(rng.uniform(0.5, 2.0, shape).astype(np.float32)) \
+        if dense else torch.tensor(1.7)
+    gmt = torch.tensor(0.9) * torch.tensor(gm)      # γ·maskᵢ as a tensor
+    want = _kept_z_update(x.clone(), g, d, c, gmt)
+    got = x.clone()
+    assert TK.flexa_apply(got, g, d, c, gmt, out=got) is got
+    assert torch.equal(got, want)
+
+
+def test_flexa_step_equals_the_kept_z_step():
+    """One optimizer step on a reduced stablelm-3b (ℓ1 on, greedy ρ)
+    writes the same bits as the update that kept every z."""
+    cfg = get_reduced("stablelm-3b")
+    tcfg = TrainConfig(optimizer="flexa", flexa_l1=1e-3, flexa_rho=0.9)
+    torch.manual_seed(0)
+    model = T.DenseLM(cfg, device="cpu")
+    leaves = T.param_leaves(cfg, model)
+    grads = [[torch.randn_like(x) * 0.01 for x in leaf.tensors]
+             for leaf in leaves]
+    init, update = O.flexa_optimizer(tcfg)
+    state = init(leaves)
+    before = [[x.detach().clone() for x in leaf.tensors] for leaf in leaves]
+    _, _, metrics = update(grads, state, leaves, torch.tensor(3.0))
+    # the kept-z step, recomputed from the saved weights
+    es = [sum(TK.flexa_best_response(x, g, state.tau[i], _c(tcfg, leaf))[1]
+              for x, g in zip(xs, gs))
+          for i, (leaf, xs, gs) in enumerate(zip(leaves, before, grads))]
+    E = torch.sqrt(torch.stack(es))
+    mask = (E >= tcfg.flexa_rho * E.max()).to(E.dtype)
+    assert 0 < float(mask.mean()) < 1
+    for i, (leaf, xs, gs) in enumerate(zip(leaves, before, grads)):
+        for x_new, x0, g in zip(leaf.tensors, xs, gs):
+            want = _kept_z_update(x0.clone(), g, state.tau[i],
+                                  _c(tcfg, leaf), state.gamma * mask[i])
+            assert torch.equal(x_new.detach(), want)
+
+
+def _c(tcfg, leaf):
+    return tcfg.flexa_l1 if O._l1_mask(leaf.path) else 0.0
