@@ -20,7 +20,8 @@ each failing the run when its check fails:
                buffer, fp32 and bf16, and the decay-overflow case, within
                1e-4 × max |y| (bf16: 2 ulps per element plus that), finite
                and bitwise repeatable.
-3. goldens  — ``tests/golden/flexa_lasso_V.json`` and
+3. goldens  — ``tests/golden/flexa_lasso_V.json``,
+               ``fista_lasso_V.json``, ``admm_lasso_V.json`` and
                ``path_lasso_compact_V.json`` on the card, at the tests'
                tolerances.
 4. solo     — the paper's fig1d Lasso (m=5000, n=100000, 5% nnz) through
@@ -30,6 +31,20 @@ each failing the run when its check fails:
                S.2) launched once per iteration (1000 per method, by
                counter); one fig1d iteration's z and x_new from the
                kernels equal their plain versions' bit for bit.
+4b. fig1    — the paper's Fig. 1 race at fig1d (``benchmarks/fig1.py``'s
+               field for 16 processors) on the solo phase's instance, each
+               method through ``FlexaClient(solver=SolverConfig(max_iters=
+               ..., tol=0)).run(SoloSpec(...))``: FPA, FISTA, GRock1,
+               GRockP16 and ADMM (ρ 10) for 1000 iterations, GS for 100
+               sweeps (fig1.py's max_iters // 10).  Per method the
+               iterations, wall time, ms per iteration, the final
+               (V − V*)/V*, and the time and iterations to 1e-2, 1e-4 and
+               1e-6.  Each method runs its budget (GRock may stop at a
+               non-finite V, as the reference's loop does); V finite for
+               FPA, FISTA, ADMM and GS; ``gauss_seidel_sweep`` launched
+               once per sweep (100, by counter); V of GS's final x,
+               recomputed on the host in float64, within 1e-5 relative of
+               the reported V.  The ranking is printed, not gated.
 5. path     — slice 1's main path: ``FlexaClient().run(PathSpec(...,
                compact=True))`` at fig1d, with the kernels' launch
                counters set to 0 just before and read just after (all
@@ -38,7 +53,11 @@ each failing the run when its check fails:
                counters) and device time; ``batched_best_response``
                launched once per solver iteration (between the
                iterations' sum and that plus 15 per solve: a solve stops
-               at the stop-flag check after it converges).
+               at the stop-flag check after it converges).  Then
+               ``ops.compact_best_response`` (no path calls it) once on
+               the last point's real state: its support plan, x, ∇F and
+               dense d in the (100000, 1) layout, z bit for bit the
+               composition ``gather_blocks`` → ``flexa_best_response``.
 6. compact  — the compacted path against the masked-dense path at fig1b
                (m=2000, n=10000, 10% nnz) on the golden grid.
 6b. batch   — slice 5's batched path (``benchmarks/fig1.py:run_batched``
@@ -116,7 +135,13 @@ Sq > Skv refused.  And ``apply_update``, ``batched_best_response`` and
 misaligned view; scalar, per-instance and dense d; c 0, a host value and
 per instance; γ·m 0, 1, 0.9 and per instance; fp32 and bf16 x: outputs
 bitwise equal to the plain versions', e2 within 1e-5 relative, a second
-launch bitwise.
+launch bitwise.  And ``compact_best_response``: C 1, 64, 200, 5000 (and
+4999), scalar and dense d, fp32 and bf16 x/g, ragged K with −1 pads, an
+all-pad idx, K = 1: z bitwise, pad rows 0, e2 within 1e-5 relative, a
+second launch bitwise.  And ``gauss_seidel_sweep`` at (m, n) = (500,
+2000), 3 sweeps from x = 0: x within 1e-5 and each sweep's max |δ|
+within 1e-5 relative of the plain version (the dot products sum in
+another order), a second run bitwise.
 
 Then a ``{"kernels": [...]}`` line (device time, plain time, library
 time and bound of each kernel at its path's shapes), the card's name and
@@ -153,7 +178,10 @@ REPLACES = {"gather_rows": "src/repro/kernels/flexa_prox.py:278",
             "apply_update": "src/repro/kernels/flexa_prox.py:104",
             "batched_best_response": "src/repro/kernels/flexa_prox.py:174",
             "batched_apply_update": "src/repro/kernels/flexa_prox.py:223",
-            "flash_attention": "src/repro/kernels/flash_attention.py:86"}
+            "flash_attention": "src/repro/kernels/flash_attention.py:86",
+            "compact_best_response": "src/repro/kernels/flexa_prox.py:351",
+            # no Pallas kernel: the reference's one-program sweep
+            "gauss_seidel_sweep": "src/repro/baselines/gauss_seidel.py:37"}
 FLEXA_CU = "src/repro_torch/kernels/csrc/flexa_prox.cu"
 SOURCES = {"gather_rows": "src/repro_torch/kernels/csrc/compact_rows.cu",
            "scatter_rows": "src/repro_torch/kernels/csrc/compact_rows.cu",
@@ -162,7 +190,11 @@ SOURCES = {"gather_rows": "src/repro_torch/kernels/csrc/compact_rows.cu",
            "batched_best_response": FLEXA_CU,
            "batched_apply_update": FLEXA_CU,
            "flash_attention":
-               "src/repro_torch/kernels/csrc/flash_attention.cu"}
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "compact_best_response":
+               "src/repro_torch/kernels/csrc/compact_rows.cu",
+           "gauss_seidel_sweep":
+               "src/repro_torch/kernels/csrc/gauss_seidel.cu"}
 #: Device-kernel names (substrings of the profiler's records) per wrapper;
 #: ``main`` adds those of ``flexa_prox``'s wrappers (its KERNEL_NAMES).
 KERNEL_NAMES = {"ssd_scan": ("ssd_scan_chunked",),
@@ -203,6 +235,23 @@ FA_SWEEP = [(1, 32, 32, 512, 512, 80, True), (1, 32, 32, 512, 512, 80, False),
             (1, 32, 4, 300, 4133, 128, True), (1, 8, 1, 777, 777, 64, False),
             (2, 32, 32, 1, 4133, 80, True)]
 FA_STABLELM = (4, 32, 32, 4096, 4096, 80, True)
+#: The fig1 phase: ``benchmarks/fig1.py:_field(16)`` as (label, method,
+#: options), 1000 iterations each, GS max_iters // 10 sweeps.
+FIG1_FIELD = [("FPA", "flexa", {}), ("FISTA", "fista", {}),
+              ("GRock1", "grock", {"P": 1}),
+              ("GRockP16", "grock", {"P": 16}),
+              ("GS", "gauss_seidel", {}), ("ADMM", "admm", {"rho": 10.0})]
+FIG1_ITERS = 1000
+FIG1_THRESHOLDS = (1e-2, 1e-4, 1e-6)
+#: (n_rows, k_valid, capacity, C) of the compact_best_response sweep: the
+#: (n, 1) layout of the fig1d path's bucket, C 1, 64, 200, fig1d's m =
+#: 5000 and ragged 4999, all padding, K = 1.
+CBR_SWEEP = [(100_000, 35926, 65536, 1), (2000, 700, 1024, 1),
+             (2000, 700, 1024, 64), (2000, 700, 1024, 200),
+             (3000, 1100, 2048, 5000), (1000, 300, 512, 4999),
+             (300, 0, 64, 64), (300, 0, 64, 1), (1000, 1, 1, 5000)]
+#: (m, n, sweeps) of the gauss_seidel_sweep check.
+GS_CHECK = (500, 2000, 3)
 FA_YI = (4, 32, 4, 4096, 4096, 128, True)
 
 
@@ -332,7 +381,7 @@ def window_edges(torch, prof):
             (t1 - max(e.end_ns() for e in ev)) / 1e6], len(ev)
 
 
-def phase_setup(torch, build, fp, ssd, fa):
+def phase_setup(torch, build, fp, ssd, fa, gs):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -347,6 +396,7 @@ def phase_setup(torch, build, fp, ssd, fa):
     fp.br_library()
     ssd.library()
     fa.library()
+    gs.library()
     check(not torch.backends.cuda.matmul.allow_tf32,
           "fp32 matmuls must run in full fp32 (TF32 is on)")
     say("setup", card=card, torch=torch.__version__,
@@ -512,7 +562,75 @@ def fa_sweep(torch, fa, dev):
     return err, len(cases) * len(err)
 
 
-def phase_kernels(torch, fp, ssd, fa, dev):
+def cbr_sweep(torch, fp, kops, dev):
+    """compact_best_response against its plain version over
+    ``CBR_SWEEP`` × scalar and dense d × fp32 and bf16 x/g: z bitwise,
+    pad rows 0, e2 within 1e-5 relative, a second launch bitwise."""
+    z_err, rel_max, n = 0.0, 0.0, 0
+    for i, (N, k, cap, C) in enumerate(CBR_SWEEP):
+        idx, _ = _plan(torch, N, k, cap, 80 + i, dev)
+        gen = torch.Generator(device=dev).manual_seed(80 + i)
+        x32 = torch.randn((N, C), generator=gen, device=dev)
+        g32 = 0.5 * torch.randn((N, C), generator=gen, device=dev)
+        dense = torch.rand((N, C), generator=gen, device=dev) * 2.5 + 0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            x, g = x32.to(dtype), g32.to(dtype)
+            for d in (torch.tensor(1.7, device=dev), dense):
+                what = (f"({N}, {C}) K={cap} valid={k} {dtype} "
+                        f"dense={d.dim() > 0}")
+                z, e2 = kops.compact_best_response(x, g, d, 0.3, idx)
+                z0, e0 = fp.compact_best_response.plain(x, g, d, 0.3, idx)
+                z_err = max(z_err, equal_or_fail(
+                    torch, "compact_best_response", z, z0, what))
+                check(bool((z[idx < 0] == 0).all()),
+                      f"compact_best_response {what}: a pad row is not 0")
+                e2, e0 = float(e2), float(e0)
+                rel = abs(e2 - e0) / max(e0, 1e-30)
+                check(rel <= 1e-5, f"compact_best_response {what}: e2 {e2} "
+                      f"vs plain {e0}")
+                rel_max = max(rel_max, rel)
+                z2, e22 = kops.compact_best_response(x, g, d, 0.3, idx)
+                check(torch.equal(z2, z) and float(e22) == e2,
+                      f"compact_best_response {what}: a second launch gave "
+                      "other bits")
+                n += 1
+                del z, z0, z2
+        del x32, g32, dense, x, g
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return z_err, rel_max, n
+
+
+def gs_check(torch, gs, dev):
+    """gauss_seidel_sweep against its plain version: ``GS_CHECK``'s sweeps
+    from x = 0 (r = −b), twice through the kernel (bitwise), once through
+    the plain version: x within 1e-5, each sweep's max |δ| within 1e-5
+    relative."""
+    from repro_torch.problems.lasso import nesterov_instance
+
+    m, n, sweeps = GS_CHECK
+    p = nesterov_instance(**{**FIG1D, "m": m, "n": n}, device=dev)
+    A = p.data["A"]
+    At, colsq = A.T.contiguous(), torch.clamp_min((A * A).sum(0), 1e-12)
+    runs = []
+    for fn in (gs.gauss_seidel_sweep, gs.gauss_seidel_sweep,
+               gs.gauss_seidel_sweep.plain):
+        x = torch.zeros(n, device=dev)
+        r = -p.data["b"]
+        runs.append((x, r, torch.stack([fn(At, colsq, x, r, p.g_weight)
+                                        for _ in range(sweeps)])))
+    (xk, rk, sk), (xk2, rk2, sk2), (xp, _, sp) = runs
+    check(torch.equal(xk, xk2) and torch.equal(rk, rk2)
+          and torch.equal(sk, sk2),
+          "gauss_seidel_sweep: a second run gave other bits")
+    dx = float((xk - xp).abs().max())
+    rel = float(((sk - sp).abs() / sp.abs()).max())
+    check(dx <= 1e-5 and rel <= 1e-5, f"gauss_seidel_sweep vs its plain "
+          f"version over {sweeps} sweeps: max |dx| {dx}, max |δ| rel {rel}")
+    return dx, rel
+
+
+def phase_kernels(torch, fp, ssd, fa, gs, dev):
     err = {"gather_rows": 0.0, "scatter_rows": 0.0}
     times = {}
 
@@ -575,12 +693,19 @@ def phase_kernels(torch, fp, ssd, fa, dev):
     bat_err, bat_e2_rel, bat_cases = batched_sweep(torch, fp, dev)
     err["apply_update"] = upd_err
     err.update(bat_err)
+    from repro_torch.kernels import ops as kops
+    err["compact_best_response"], cbr_e2_rel, cbr_cases = cbr_sweep(
+        torch, fp, kops, dev)
+    err["gauss_seidel_sweep"], gs_delta_rel = gs_check(torch, gs, dev)
     say("kernels", max_abs_err=err, gather_ms=times, ssd_scan_cases=n_ssd,
         ssd_scan_max_abs_err_y_h=ssd_err, best_response_cases=n_br,
         best_response_max_e2_rel_err=br_e2_rel, flash_attention_cases=n_fa,
         flash_attention_max_abs_err=fa_err, apply_update_cases=upd_cases,
         batched_cases=bat_cases, batched_best_response_max_e2_rel_err=(
-            bat_e2_rel))
+            bat_e2_rel), compact_best_response_cases=cbr_cases,
+        compact_best_response_max_e2_rel_err=cbr_e2_rel,
+        gauss_seidel_sweep_check=dict(zip(("m", "n", "sweeps"), GS_CHECK)),
+        gauss_seidel_sweep_max_delta_rel_err=gs_delta_rel)
     return err
 
 
@@ -754,15 +879,18 @@ def phase_goldens(torch, dev):
     from repro_torch.config.base import SolverConfig
     from repro_torch.problems.lasso import nesterov_instance
 
-    gold = json.loads((GOLDEN / "flexa_lasso_V.json").read_text())
-    p = nesterov_instance(**gold["instance"], device=dev)
-    r = FlexaClient(solver=SolverConfig(**gold["budget"],
-                                        **gold["cfg_overrides"])).run(
-        SoloSpec(problem=p))
-    V = r.history["V"]
-    check(len(V) == len(gold["V"]), "flexa golden: iteration count")
-    rel_v = max(abs(a - b) / abs(b) for a, b in zip(V, gold["V"]))
-    check(rel_v <= 5e-4, f"flexa golden: V rel err {rel_v}")
+    rel_v = {}
+    for method in ("flexa", "fista", "admm"):
+        gold = json.loads((GOLDEN / f"{method}_lasso_V.json").read_text())
+        p = nesterov_instance(**gold["instance"], device=dev)
+        r = FlexaClient(solver=SolverConfig(**gold["budget"],
+                                            **gold["cfg_overrides"])).run(
+            SoloSpec(problem=p, method=method, options=gold["options"]))
+        V = r.history["V"]
+        check(len(V) == len(gold["V"]), f"{method} golden: iteration count")
+        rel_v[method] = max(abs(a - b) / abs(b) for a, b in zip(V, gold["V"]))
+        check(rel_v[method] <= 5e-4,
+              f"{method} golden: V rel err {rel_v[method]}")
 
     gold = json.loads((GOLDEN / "path_lasso_compact_V.json").read_text())
     p = nesterov_instance(**gold["instance"], device=dev)
@@ -779,7 +907,7 @@ def phase_goldens(torch, dev):
     flops_rel = abs(r.device_flops - gold["device_flops"]) \
         / gold["device_flops"]
     check(flops_rel <= 0.02, f"path golden: device_flops {r.device_flops}")
-    say("goldens", flexa_V_rel_err=rel_v, path_V_rel_err=rel_p,
+    say("goldens", V_rel_err=rel_v, path_V_rel_err=rel_p,
         support=[int(s) for s in r.support],
         program_widths=r.meta["program_widths"],
         device_flops=r.device_flops, golden_device_flops=gold[
@@ -857,6 +985,166 @@ def phase_solo(torch, fp, dev):
     return p
 
 
+def time_to(V, T, v_star, thr):
+    """(seconds, iterations) until (V − V*)/V* ≤ ``thr`` first, on the
+    solver's history clock (``benchmarks/fig1.py:time_to``); (None, None)
+    if never."""
+    for k, v in enumerate(V):
+        if (v - v_star) / v_star <= thr:
+            return T[k], k + 1
+    return None, None
+
+
+def phase_fig1(torch, fp, gs, p, dev):
+    """The paper's Fig. 1 race at fig1d (``benchmarks/fig1.py:run_group``'s
+    field for 16 processors) on the solo phase's instance, each method a
+    ``SoloSpec`` through ``FlexaClient`` with tol 0; then one Gauss-Seidel
+    sweep from x = 0 at fig1d timed through the kernel and its plain
+    version (CUDA events).  Returns (the sweep kernel's launches in the
+    race, the sweep's timing)."""
+    from repro_torch.client import FlexaClient, SoloSpec
+    from repro_torch.config.base import SolverConfig
+
+    counters = {"best_response": fp.best_response,
+                "apply_update": fp.apply_update,
+                "gather_rows": fp.gather_rows,
+                "scatter_rows": fp.scatter_rows,
+                "batched_best_response": fp.batched_best_response,
+                "batched_apply_update": fp.batched_apply_update,
+                "compact_best_response": fp.compact_best_response,
+                "gauss_seidel_sweep": gs.gauss_seidel_sweep}
+    for k in counters.values():
+        k.launches = 0
+    sweeps = FIG1_ITERS // 10
+    rows, final = {}, {}
+    for label, method, options in FIG1_FIELD:
+        iters = sweeps if method == "gauss_seidel" else FIG1_ITERS
+        client = FlexaClient(solver=SolverConfig(max_iters=iters, tol=0))
+        before = {k: w.launches for k, w in counters.items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = client.run(SoloSpec(problem=p, method=method, options=options))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        V, T = r.history["V"], r.history["time"]
+        diverged = not math.isfinite(V[-1])
+        check(r.iters == iters or (method == "grock" and diverged),
+              f"fig1 {label}: {r.iters} of {iters} iterations, V {V[-1]}")
+        check(method == "grock" or not diverged, f"fig1 {label}: V {V[-1]}")
+        row = {"method": method, "options": options, "iters": r.iters,
+               "budget": iters, "wall_s": round(wall, 4),
+               "ms_per_iter": wall / r.iters * 1e3,
+               "rel_err_final": (V[-1] - p.v_star) / p.v_star,
+               # the history clock's first stamp: set-up and one iteration
+               "first_iter_s": T[0],
+               "launches": {k: w.launches - before[k]
+                            for k, w in counters.items()
+                            if w.launches > before[k]}}
+        for thr in FIG1_THRESHOLDS:
+            row[f"t_{thr:.0e}"], row[f"it_{thr:.0e}"] = time_to(
+                V, T, p.v_star, thr)
+        rows[label] = row
+        final[label] = (r.x, V[-1])
+        print(f"fig1 {label}: " + json.dumps(row), flush=True)
+    launches = {k: w.launches for k, w in counters.items()}
+    check(launches["gauss_seidel_sweep"] == rows["GS"]["launches"].get(
+        "gauss_seidel_sweep") == sweeps, f"fig1: gauss_seidel_sweep launched "
+          f"{launches['gauss_seidel_sweep']} times in {sweeps} sweeps")
+    # V of GS's final x on the host, float64, against the reported V (the
+    # sweep's incrementally kept residual, fp32)
+    x_gs, v_gs = final["GS"]
+    A64 = p.data["A"].cpu().numpy().astype(np.float64)
+    x64 = np.asarray(x_gs, np.float64)
+    res = A64 @ x64 - p.data["b"].cpu().numpy().astype(np.float64)
+    del A64
+    v_host = float(res @ res + p.g_weight * np.abs(x64).sum())
+    gs_v_rel = abs(v_gs - v_host) / abs(v_host)
+    check(gs_v_rel <= 1e-5, f"fig1 GS: reported V {v_gs} vs {v_host} "
+          f"recomputed on the host (rel {gs_v_rel})")
+
+    # one sweep from x = 0 at fig1d: kernel and plain version
+    A, b = p.data["A"], p.data["b"]
+    At = A.T.contiguous()
+    colsq = torch.clamp_min((A * A).sum(0), 1e-12)
+    sweep = {}
+    for key, fn in (("ms", gs.gauss_seidel_sweep),
+                    ("plain_ms", gs.gauss_seidel_sweep.plain)):
+        x, r0 = torch.zeros(p.n, device=dev), -b
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0.record()
+        fn(At, colsq, x, r0, p.g_weight)
+        t1.record()
+        torch.cuda.synchronize()
+        sweep[key] = t0.elapsed_time(t1)
+        sweep[key.replace("ms", "x")] = x
+    sweep_dx = float((sweep.pop("x") - sweep.pop("plain_x")).abs().max())
+    n, m = At.shape
+    sweep.update({
+        "shape": [n, m], "first_sweep_max_abs_dx": sweep_dx,
+        "race_ms_per_sweep": rows["GS"]["ms_per_iter"],
+        # Aᵀ read once; x and colsq read, x written; r read and written
+        "bound_ms": bytes_ms(4 * n * m + 12 * n + 8 * m),
+        "ops_ms": 4 * n * m / FP32_OPS_PER_S * 1e3})
+    del At, colsq
+    torch.cuda.empty_cache()
+    ranking = sorted(rows, key=lambda k: (not math.isfinite(
+        rows[k]["rel_err_final"]), rows[k]["rel_err_final"]))
+    say("fig1", instance="fig1d", v_star=p.v_star, iters=FIG1_ITERS,
+        gs_sweeps=sweeps, launches=launches,
+        ranking_by_final_rel_err=ranking,
+        gs_V_host_float64_rel_err=gs_v_rel, gs_first_sweep=sweep)
+    return launches["gauss_seidel_sweep"], sweep
+
+
+def cbr_on_path_state(torch, fp, p, r, cfg):
+    """``ops.compact_best_response`` once on the path's last point: its
+    support's plan (``solvers.compaction.make_plan``), x, ∇F = 2Aᵀ(Ax − b)
+    and the solver's dense d there, in the (n, 1) layout, its launch
+    counter set to 0 just before and read just after; z bit for bit (e2
+    within 1e-5 relative) the composition ``gather_blocks`` →
+    ``flexa_best_response`` with pad rows' d set to 1; the call's device
+    time (graph) beside its bound."""
+    from repro_torch.core import flexa, surrogate
+    from repro_torch.kernels import ops as kops
+    from repro_torch.path.driver import _problem_at
+    from repro_torch.solvers.compaction import make_plan
+
+    lam = float(r.lambdas[-1])
+    pk = _problem_at(p, lam)
+    x = torch.as_tensor(r.x[-1], device=p.device)
+    plan = make_plan(r.x[-1] != 0, 1)
+    d = surrogate.curvature(pk, flexa._base_tau(pk, cfg), cfg.surrogate)
+    cols = [t.reshape(-1, 1).contiguous() for t in (x, pk.grad_f(x), d)]
+    cbr = fp.compact_best_response
+    cbr.launches = 0
+    z, e2 = kops.compact_best_response(*cols, lam, plan.block_idx)
+    launches = cbr.launches
+    check(launches == 1, f"compact_best_response launched {launches} times")
+    idx = torch.as_tensor(plan.block_idx, device=p.device)
+    dc = kops.gather_blocks(cols[2], idx)
+    dc[idx < 0] = 1.0
+    z0, e0 = kops.flexa_best_response(kops.gather_blocks(cols[0], idx),
+                                      kops.gather_blocks(cols[1], idx),
+                                      dc, lam)
+    err = equal_or_fail(torch, "compact_best_response", z, z0,
+                        "the fig1d path's last point")
+    rel = abs(float(e2) - float(e0)) / max(float(e0), 1e-30)
+    check(rel <= 1e-5, f"compact_best_response on the path state: e2 "
+          f"{float(e2)} vs {float(e0)}")
+    valid = int((idx >= 0).sum())
+    K = plan.capacity
+    return {"launches": launches, "max_abs_err": err, "e2_rel_err": rel,
+            "lambda": lam, "support": valid, "K": K,
+            "ms": graph_ms(torch, lambda: cbr(*cols, lam, idx)),
+            "eager_ms": cuda_ms(torch, lambda: cbr(*cols, lam, idx)),
+            # eager: the plain version copies c to the card, which a
+            # graph capture refuses
+            "plain_ms": cuda_ms(torch, lambda: cbr.plain(*cols, lam, idx)),
+            # idx read; x, g, d read and z written per valid row, z per pad
+            "bound_ms": bytes_ms(4 * K + 16 * valid + 4 * (K - valid))}
+
+
 def phase_path(torch, fp, p):
     """Slice 1's main path under ``torch.profiler``: the wrappers'
     counters give the launches, the profiler's kernel records the same
@@ -870,7 +1158,8 @@ def phase_path(torch, fp, p):
 
     gather, scatter = fp.gather_rows, fp.scatter_rows
     br = fp.batched_best_response
-    client = FlexaClient(solver=SolverConfig(tol=1e-6, max_iters=20000))
+    cfg = SolverConfig(tol=1e-6, max_iters=20000)
+    client = FlexaClient(solver=cfg)
     spec = PathSpec(problem=p, n_points=10, lam_min_ratio=0.1, compact=True)
     tracer = obs.Tracer()
     gather.launches = scatter.launches = br.launches = 0
@@ -921,6 +1210,7 @@ def phase_path(torch, fp, p):
         if sp.name == "path.point":
             point_s[sp.args["k"]] = round(sp.t1 - sp.t0, 3)
     kernel_ms = sum(v[1] for v in per_kernel.values())
+    cbr = cbr_on_path_state(torch, fp, p, r, cfg)
     say("path", instance="fig1d", wall_s=round(wall, 3),
         point_wall_s=point_s,
         iters=[int(i) for i in r.iters],
@@ -939,8 +1229,8 @@ def phase_path(torch, fp, p):
         device_records=busy[0], device_busy_s=round(busy[1] / 1e3, 3),
         device_busy_share=busy[1] / (wall * 1e3),
         profile_read_s=round(read_s, 2),
-        max_zero_block_kkt=kkt)
-    return r, launches
+        max_zero_block_kkt=kkt, compact_best_response_on_last_point=cbr)
+    return r, launches, cbr
 
 
 def phase_compact_vs_dense(torch, dev):
@@ -1577,7 +1867,8 @@ def br_row(torch, fp, launches, err, dev):
                       for k, v in timed.items()}}
 
 
-def kernel_line(torch, fp, ssd, fa, r, launches, serve_launches, err, dev):
+def kernel_line(torch, fp, ssd, fa, r, launches, serve_launches, err,
+                cbr_state, gs_sweep, dev):
     """Each kernel timed at the path's largest shapes: the gather of Aᵀ
     at the widest bucket K (a full bucket, so ``index_select`` computes
     the same function), and the scatter of K values into (n, 1).
@@ -1629,7 +1920,74 @@ def kernel_line(torch, fp, ssd, fa, r, launches, serve_launches, err, dev):
     rows.append(fa_row(torch, fa, launches["flash_attention"],
                        err["flash_attention"], dev))
     rows += update_rows(torch, fp, launches, err, dev)
+    rows.append(cbr_row(torch, fp, err["compact_best_response"], cbr_state,
+                        dev))
+    rows.append(gs_row(launches["gauss_seidel_sweep"],
+                       err["gauss_seidel_sweep"], gs_sweep))
     return rows
+
+
+def cbr_row(torch, fp, err, state, dev):
+    """compact_best_response at ``gather_rows``' timed shape: x, g (n, m)
+    = (100000, 5000) fp32, a full K = 65536 bucket, scalar d, device times
+    of calls replayed from a CUDA graph (the plain version's: eager, it
+    holds several GB of temporaries).  Bound: 12 bytes per gathered
+    element (x and g read, z written) and idx, over HBM.  Beside it the
+    call on the fig1d path's last-point state (``cbr_on_path_state``),
+    which is where its one launch was counted."""
+    n, m = FIG1D["n"], FIG1D["m"]
+    K = VECTOR_K
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn((n, m), generator=gen, device=dev)
+    g = 0.1 * torch.randn((n, m), generator=gen, device=dev)
+    d = torch.tensor(1.7, device=dev)
+    idx, _ = _plan(torch, n, K, K, 12, dev)
+    kernel = fp.compact_best_response
+    t = {"ms": graph_ms(torch, lambda: kernel(x, g, d, 0.3, idx)),
+         "eager_ms": cuda_ms(torch, lambda: kernel(x, g, d, 0.3, idx)),
+         "plain_ms": cuda_ms(torch, lambda: kernel.plain(x, g, d, 0.3, idx),
+                             reps=5),
+         "bound_ms": bytes_ms(12 * K * m + 4 * K)}
+    del x, g
+    torch.cuda.empty_cache()
+    path = {k: (round(v, 6) if isinstance(v, float) else v)
+            for k, v in state.items()}
+    return {"name": "compact_best_response", "route": "cuda",
+            "source": SOURCES["compact_best_response"],
+            "replaces": REPLACES["compact_best_response"],
+            "launches": state["launches"],
+            "launches_on": "ops.compact_best_response on the fig1d path's "
+                           "last-point state (no path of the reference "
+                           "calls it)",
+            "max_abs_err": err,
+            "ms": round(t["ms"], 5), "plain_ms": round(t["plain_ms"], 5),
+            "bound_ms": round(t["bound_ms"], 5), "bound_by": "bytes",
+            # no single PyTorch call gathers and soft-thresholds
+            "library_ms": None, "eager_ms": round(t["eager_ms"], 5),
+            "shape": f"x, g ({n}, {m}) fp32, K={K}, scalar d",
+            "timed": {"path_state": path}}
+
+
+def gs_row(launches, err, sweep):
+    """gauss_seidel_sweep: one sweep from x = 0 at fig1d (``phase_fig1``),
+    CUDA events around one launch and around the plain version's loop.
+    Bound: Aᵀ read once over HBM (the operations, 4 per element, take
+    less); the sweep is sequential, so latency, not this, bounds it."""
+    return {"name": "gauss_seidel_sweep", "route": "cuda",
+            "source": SOURCES["gauss_seidel_sweep"],
+            "replaces": REPLACES["gauss_seidel_sweep"],
+            "tpu_kernel": False,
+            "launches": launches,
+            "launches_on": "the fig1 phase's GS run (one per sweep)",
+            "max_abs_err": err,
+            "ms": round(sweep["ms"], 4),
+            "plain_ms": round(sweep["plain_ms"], 4),
+            "bound_ms": round(sweep["bound_ms"], 5), "bound_by": "bytes",
+            "library_ms": None,
+            "shape": f"Aᵀ {tuple(sweep['shape'])} fp32, one sweep from "
+                     "x = 0 (fig1d)",
+            "timed": {k: (round(v, 6) if isinstance(v, float) else v)
+                      for k, v in sweep.items()}}
 
 
 def update_rows(torch, fp, launches, err, dev):
@@ -1855,22 +2213,27 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import flexa_prox as fp
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gauss_seidel as gs
     from repro_torch.kernels import ssd_scan as ssd
 
     KERNEL_NAMES.update(fp.KERNEL_NAMES)
+    KERNEL_NAMES.update(gs.KERNEL_NAMES)
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     phase = "setup"
     try:
-        card = phase_setup(torch, build, fp, ssd, fa)
+        card = phase_setup(torch, build, fp, ssd, fa, gs)
         phase = "kernels"
-        err = phase_kernels(torch, fp, ssd, fa, dev)
+        err = phase_kernels(torch, fp, ssd, fa, gs, dev)
         phase = "goldens"
         phase_goldens(torch, dev)
         phase = "solo"
         p = phase_solo(torch, fp, dev)
+        phase = "fig1"
+        gs_launches, gs_sweep = phase_fig1(torch, fp, gs, p, dev)
         phase = "path"
-        r, launches = phase_path(torch, fp, p)
+        r, launches, cbr_state = phase_path(torch, fp, p)
+        launches["gauss_seidel_sweep"] = gs_launches
         del p
         torch.cuda.empty_cache()
         phase = "compact"
@@ -1890,7 +2253,7 @@ def main() -> int:
         phase_descent(torch, dev)
         phase = "kernel timing"
         rows = kernel_line(torch, fp, ssd, fa, r, launches, serve_launches,
-                           err, dev)
+                           err, cbr_state, gs_sweep, dev)
     except Exception as exc:                          # report and fail
         print(f"FAIL {phase}: {type(exc).__name__}: {exc}", flush=True)
         raise

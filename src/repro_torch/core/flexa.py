@@ -227,7 +227,9 @@ def run_frozen(step, state: FlexaState, cfg: SolverConfig) -> FlexaState:
     return state
 
 
-def _as_x0(problem: Problem, x0) -> torch.Tensor:
+def as_x0(problem: Problem, x0) -> torch.Tensor:
+    """The start point: ``x0`` as fp32 on the problem's device (zeros
+    when None); may alias an ``x0`` already there."""
     if x0 is None:
         return torch.zeros((problem.n,), dtype=torch.float32,
                            device=problem.device)
@@ -245,7 +247,7 @@ def solve(problem: Problem, x0=None, cfg: SolverConfig | None = None,
     if active is not None:
         active = torch.as_tensor(active, dtype=torch.float32).to(
             problem.device)
-    state = init_state(problem, _as_x0(problem, x0), cfg)
+    state = init_state(problem, as_x0(problem, x0), cfg)
 
     hist: dict[str, list] = {k: [] for k in HISTORY_KEYS + ("time",)}
     t0 = time.perf_counter()
@@ -278,7 +280,7 @@ def solve_compiled(problem: Problem, x0=None,
     def step(state):
         return flexa_iteration(problem, cfg, tau_base, state)[0]
 
-    final = run_frozen(step, init_state(problem, _as_x0(problem, x0), cfg),
+    final = run_frozen(step, init_state(problem, as_x0(problem, x0), cfg),
                        cfg)
     return SolverResult(x=final.x, iters=int(final.k),
                         converged=bool(final.stat <= cfg.tol), state=final,

@@ -9,12 +9,25 @@
 //              inv[i] >= 0, else base[i], in base's dtype.  The scatter is a
 //              gather of the inverse permutation: one writer per output
 //              row, no atomics.
+// compact_best_response replaces src/repro/kernels/flexa_prox.py:351
+//              (compact_best_response, pallas_call at :385): the gather of
+//              the K rows idx picks from x, g (and a dense d), fused with
+//              the FLEXA best response on them,
+//                  w = x - g / d,  t = c / d,  z = sign(w) * max(|w| - t, 0)
+//              z (K, C) fp32 with pad rows (idx = -1) exactly 0, and
+//              e2 = sum over the gathered rows of (z - x)^2.  Both
+//              quotients are true fp32 divisions (__fdiv_rn), as the
+//              reference's oracle and the port's plain version divide.
 //
 // What bounds them on an H100: both move bytes and compute nothing, so the
 // floor is (rows read + rows written) over the 3.35 TB/s of HBM3.  On the
 // path the gather reads the K active columns of the transposed design
 // matrix (rows of C = m floats, 20 KB each at m = 5000) and writes them
 // densely; the scatter moves one float per block of an (n, 1) vector.
+//
+// compact_best_response reads the K gathered rows of x and g (and d) and
+// writes z: 12 bytes per fp32 element (16 with dense d), 1.17 ms at
+// (K, C) = (65536, 5000).
 //
 // What the design does about it:
 //  * Wide rows (C >= 32): one block per output row.  Each thread moves 16
@@ -29,6 +42,15 @@
 //    scatters (n, 1) vectors and nothing wider.
 //  * Each block loads its own index; there is no scalar prefetch and no
 //    padding of C to a lane multiple (the TPU kernel pads to 128 columns).
+//  * compact_best_response has both layouts, with a grid the wrapper sizes
+//    from K and the SM count alone: wide rows (C >= 32) one row per block
+//    at a time, grid-stride over the rows, 4 elements per thread per step
+//    (16 bytes of fp32, 8 of bf16) when C % 4 == 0 and the pointers allow
+//    it; narrow rows (the (n, 1) layout of l1 block size 1) one row per
+//    thread.  e2: each block sums its threads' (z - x)^2 in a fixed tree
+//    into one partial; the last block to finish (a ticket counter, zeroed
+//    by a memset before the launch) sums the partials in index order.  No
+//    float atomics, so the same inputs give the same bits on every launch.
 //
 // Plain C interface, bound with ctypes: pointers are raw device addresses,
 // the stream is the caller's current CUDA stream, and each launcher
@@ -198,6 +220,220 @@ bool scatter_by_out(int out_dtype, const void* vals, const int* inv,
   return false;
 }
 
+// ----------------------------------------------------- compact best response
+constexpr int kCbrNarrowThreads = 256;
+
+// soft(w, t) = sign(w) * max(|w| - t, 0), as torch.sign * clamp_min.
+__device__ __forceinline__ float soft(float w, float t) {
+  const float a = __fsub_rn(fabsf(w), t);
+  const float m = a > 0.f ? a : 0.f;
+  const float s = w > 0.f ? 1.f : (w < 0.f ? -1.f : 0.f);
+  return s * m;
+}
+
+// w = x - g / d, then the threshold t: each quotient a true division.
+__device__ __forceinline__ float response(float xf, float gf, float d,
+                                          float t) {
+  return soft(__fsub_rn(xf, __fdiv_rn(gf, d)), t);
+}
+
+// Four consecutive elements as fp32 (16 bytes of fp32, 8 of bf16).
+template <typename T> struct Load4;
+template <> struct Load4<float> {
+  static __device__ __forceinline__ void get(const float* p, float v[4]) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  }
+};
+template <> struct Load4<__nv_bfloat16> {
+  static __device__ __forceinline__ void get(const __nv_bfloat16* p,
+                                             float v[4]) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = __bfloat162float(e[q]);
+  }
+};
+
+// Sum of v over the block (blockDim.x a multiple of 32), fixed order;
+// valid in thread 0.
+__device__ __forceinline__ float block_sum(float v, float* sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  if (lane == 0) sh[warp] = v;
+  __syncthreads();
+  v = threadIdx.x < (blockDim.x >> 5) ? sh[threadIdx.x] : 0.f;
+  if (warp == 0) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+// The block's partial of e2 into partials[blockIdx.x]; the last block to
+// arrive sums all partials in index order into *e2.
+__device__ __forceinline__ void finish_e2(float acc, float* partials,
+                                          unsigned* ticket, float* e2) {
+  __shared__ float sh[32];
+  __shared__ bool last;
+  const float s = block_sum(acc, sh);
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = s;
+    __threadfence();                      // partial visible before ticket
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float p = 0.f;
+  for (unsigned j = threadIdx.x; j < gridDim.x; j += blockDim.x)
+    p += __ldcg(partials + j);
+  __syncthreads();                        // sh is reused
+  p = block_sum(p, sh);
+  if (threadIdx.x == 0) *e2 = p;
+}
+
+template <typename T, bool kDenseD, bool kVec>
+__global__ void compact_br_wide(const T* __restrict__ x,
+                                const T* __restrict__ g,
+                                const float* __restrict__ d,
+                                const int* __restrict__ idx, float c,
+                                float* __restrict__ z,
+                                float* __restrict__ partials,
+                                unsigned* __restrict__ ticket,
+                                float* __restrict__ e2, long long K,
+                                long long C) {
+  float d0 = 0.f, t0 = 0.f;
+  if (!kDenseD) {
+    d0 = d[0];
+    t0 = __fdiv_rn(c, d0);
+  }
+  float acc = 0.f;
+  for (long long k = blockIdx.x; k < K; k += gridDim.x) {
+    const int r = idx[k];
+    float* zo = z + k * C;
+    if (r < 0) {                          // pad row: z = 0, nothing to e2
+      for (long long j = threadIdx.x; j < C; j += blockDim.x) zo[j] = 0.f;
+      continue;
+    }
+    const T* xr = x + (long long)r * C;
+    const T* gr = g + (long long)r * C;
+    const float* dr = d + (kDenseD ? (long long)r * C : 0);
+    if (kVec) {
+      for (long long j = 4 * threadIdx.x; j < C; j += 4 * blockDim.x) {
+        float xv[4], gv[4], dv[4], zv[4];
+        Load4<T>::get(xr + j, xv);
+        Load4<T>::get(gr + j, gv);
+        if (kDenseD) Load4<float>::get(dr + j, dv);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float dq = kDenseD ? dv[q] : d0;
+          zv[q] = response(xv[q], gv[q], dq,
+                           kDenseD ? __fdiv_rn(c, dq) : t0);
+          const float diff = zv[q] - xv[q];
+          acc += diff * diff;
+        }
+        *reinterpret_cast<float4*>(zo + j) =
+            make_float4(zv[0], zv[1], zv[2], zv[3]);
+      }
+    } else {
+      for (long long j = threadIdx.x; j < C; j += blockDim.x) {
+        const float xf = Cvt<T>::to(xr[j]);
+        const float dq = kDenseD ? dr[j] : d0;
+        const float zj = response(xf, Cvt<T>::to(gr[j]), dq,
+                                  kDenseD ? __fdiv_rn(c, dq) : t0);
+        zo[j] = zj;
+        const float diff = zj - xf;
+        acc += diff * diff;
+      }
+    }
+  }
+  finish_e2(acc, partials, ticket, e2);
+}
+
+template <typename T, bool kDenseD>
+__global__ void compact_br_narrow(const T* __restrict__ x,
+                                  const T* __restrict__ g,
+                                  const float* __restrict__ d,
+                                  const int* __restrict__ idx, float c,
+                                  float* __restrict__ z,
+                                  float* __restrict__ partials,
+                                  unsigned* __restrict__ ticket,
+                                  float* __restrict__ e2, long long K,
+                                  long long C) {
+  float d0 = 0.f, t0 = 0.f;
+  if (!kDenseD) {
+    d0 = d[0];
+    t0 = __fdiv_rn(c, d0);
+  }
+  float acc = 0.f;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       k < K; k += stride) {
+    const int r = idx[k];
+    float* zo = z + k * C;
+    if (r < 0) {
+      for (long long j = 0; j < C; ++j) zo[j] = 0.f;
+      continue;
+    }
+    const long long o = (long long)r * C;
+    for (long long j = 0; j < C; ++j) {
+      const float xf = Cvt<T>::to(x[o + j]);
+      const float dq = kDenseD ? d[o + j] : d0;
+      const float zj = response(xf, Cvt<T>::to(g[o + j]), dq,
+                                kDenseD ? __fdiv_rn(c, dq) : t0);
+      zo[j] = zj;
+      const float diff = zj - xf;
+      acc += diff * diff;
+    }
+  }
+  finish_e2(acc, partials, ticket, e2);
+}
+
+bool aligned(const void* p, uintptr_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+template <typename T, bool kDenseD>
+void launch_cbr(const void* x, const void* g, const float* d, const int* idx,
+                float c, float* z, float* work, long long K, long long C,
+                int blocks, cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  float* partials = work;
+  unsigned* ticket = reinterpret_cast<unsigned*>(work + blocks);
+  float* e2 = work + blocks + 1;
+  if (C < kNarrowCols) {
+    compact_br_narrow<T, kDenseD><<<blocks, kCbrNarrowThreads, 0, st>>>(
+        xt, gt, d, idx, c, z, partials, ticket, e2, K, C);
+    return;
+  }
+  // 4 elements per step: 16 bytes of fp32 or 8 of bf16 from every row
+  const uintptr_t a = 4 * sizeof(T);
+  const bool vec = C % 4 == 0 && aligned(x, a) && aligned(g, a) &&
+                   aligned(z, 16) && (!kDenseD || aligned(d, 16));
+  const int threads = wide_threads(vec ? C / 4 : C);
+  if (vec)
+    compact_br_wide<T, kDenseD, true><<<blocks, threads, 0, st>>>(
+        xt, gt, d, idx, c, z, partials, ticket, e2, K, C);
+  else
+    compact_br_wide<T, kDenseD, false><<<blocks, threads, 0, st>>>(
+        xt, gt, d, idx, c, z, partials, ticket, e2, K, C);
+}
+
+template <typename T>
+void launch_cbr_d(int dense_d, const void* x, const void* g, const float* d,
+                  const int* idx, float c, float* z, float* work,
+                  long long K, long long C, int blocks, cudaStream_t st) {
+  if (dense_d)
+    launch_cbr<T, true>(x, g, d, idx, c, z, work, K, C, blocks, st);
+  else
+    launch_cbr<T, false>(x, g, d, idx, c, z, work, K, C, blocks, st);
+}
+
 }  // namespace
 
 extern "C" int gather_rows_launch(const void* src, int src_dtype,
@@ -225,5 +461,30 @@ extern "C" int scatter_rows_launch(const void* vals, int vals_dtype,
     case kF16: ok = scatter_by_out<__half>(out_dtype, vals, inv, base, out, N, C, st); break;
   }
   if (!ok) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// z (K, C) fp32 and e2 of the rows idx picks from x and g (N, C), fp32
+// (dtype 0) or bf16 (1).  d: a 0-d fp32 array (dense_d = 0) or dense fp32
+// (N, C); c a host float.  work: blocks + 2 fp32 slots — the per-block
+// partials, the ticket counter (as unsigned, zeroed here before the
+// launch) and e2.  blocks: the grid, which the caller sizes from K and
+// the SM count (rows per block-step for C >= 32, 256-row groups below).
+extern "C" int compact_best_response_launch(const void* x, const void* g,
+                                            int dtype, const float* d,
+                                            int dense_d, float c,
+                                            const int* idx, float* z,
+                                            float* work, long long K,
+                                            long long C, int blocks,
+                                            void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K <= 0 || C <= 0 || blocks <= 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(work + blocks, 0, sizeof(unsigned), st);
+  if (err != cudaSuccess) return (int)err;
+  switch (dtype) {
+    case kF32: launch_cbr_d<float>(dense_d, x, g, d, idx, c, z, work, K, C, blocks, st); break;
+    case kBF16: launch_cbr_d<__nv_bfloat16>(dense_d, x, g, d, idx, c, z, work, K, C, blocks, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 """CUDA kernels of ``src/repro/kernels/flexa_prox.py``: the FLEXA best
 response (``best_response``), its fused update (``apply_update``), their
-batched forms (``batched_best_response``, ``batched_apply_update``) and
-the compaction gather/scatter (``gather_rows`` / ``scatter_rows``).
+batched forms (``batched_best_response``, ``batched_apply_update``), the
+compaction gather/scatter (``gather_rows`` / ``scatter_rows``) and the
+gather fused with the best response (``compact_best_response``).
 
 They replace the Pallas TPU kernels of that file:
 
@@ -26,15 +27,22 @@ They replace the Pallas TPU kernels of that file:
 * :func:`scatter_rows` — ``scatter_rows`` at flexa_prox.py:308
   (``pallas_call`` :329): out[i] = vals[inv[i]] where inv[i] ≥ 0, else
   base[i], as a new tensor in base's dtype.
+* :func:`compact_best_response` — ``compact_best_response`` at
+  flexa_prox.py:351 (``pallas_call`` :385): the gather of the K rows idx
+  picks from x, g (and a dense d) fused with :func:`best_response` on
+  them; z (K, C) fp32 with pad rows 0, e2 over the gathered rows.  No
+  path of the reference calls it: it stands at its entry point,
+  ``ops.compact_best_response``.
 
-All three only stream bytes, so HBM bandwidth bounds them; the sources
+All of them only stream bytes, so HBM bandwidth bounds them; the sources
 (``csrc/flexa_prox.cu``, ``csrc/compact_rows.cu``) say how each kernel
 is laid out for that.  The plain versions are
 the ``*_ref`` functions of :mod:`repro_torch.kernels.ref`
 (``flexa_best_response_ref``, ``flexa_apply_ref``,
 ``flexa_best_response_batched_ref``, ``flexa_apply_batched_ref``,
-``gather_rows_ref``, ``scatter_rows_ref``), also reachable as each
-wrapper's ``.plain``.
+``gather_rows_ref``, ``scatter_rows_ref``,
+``compact_best_response_ref``), also reachable as each wrapper's
+``.plain``.
 
 Build: each source into its own shared library, through
 :mod:`repro_torch.kernels.build` at first use (nothing is built or
@@ -80,7 +88,9 @@ KERNEL_NAMES = {"gather_rows": ("gather_wide", "gather_narrow"),
                 "batched_best_response":
                     ("flexa_batched_best_response_kernel",),
                 "batched_apply_update":
-                    ("flexa_batched_apply_update_kernel",)}
+                    ("flexa_batched_apply_update_kernel",),
+                "compact_best_response": ("compact_br_wide",
+                                          "compact_br_narrow")}
 
 #: d modes of the batched kernels (enum DMode in flexa_prox.cu).
 D_SCALAR, D_INSTANCE, D_DENSE = 0, 1, 2
@@ -343,6 +353,10 @@ def library() -> ctypes.CDLL:
         lib.scatter_rows_launch.argtypes = [vp, ctypes.c_int, vp, vp, vp,
                                             ctypes.c_int, ll, ll, vp]
         lib.scatter_rows_launch.restype = ctypes.c_int
+        ci = ctypes.c_int
+        lib.compact_best_response_launch.argtypes = [
+            vp, vp, ci, vp, ci, ctypes.c_float, vp, vp, vp, ll, ll, ci, vp]
+        lib.compact_best_response_launch.restype = ci
         _lib = lib
     return _lib
 
@@ -421,6 +435,60 @@ def scatter_rows(vals: torch.Tensor, inv: torch.Tensor,
     return out
 
 
+#: Narrow rows (C below this) take one thread per row in
+#: ``compact_best_response`` (kNarrowCols in compact_rows.cu), 256 rows a
+#: block (kCbrNarrowThreads).
+NARROW_COLS, NARROW_ROWS_PER_BLOCK = 32, 256
+
+
+def compact_blocks(K: int, C: int, sm_count: int) -> int:
+    """Grid of ``compact_best_response``: a function of K, C and the SM
+    count only (so e2's summation order is fixed), capped at 8 blocks per
+    SM; wide rows go one per block-step, narrow rows 256 per block."""
+    units = K if C >= NARROW_COLS else -(-K // NARROW_ROWS_PER_BLOCK)
+    return max(1, min(units, BR_BLOCKS_PER_SM * sm_count))
+
+
+def compact_best_response(x: torch.Tensor, g: torch.Tensor,
+                          d: torch.Tensor, c: float, idx: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """CUDA fused gather + best response → (z (K, C) fp32, e2 0-d fp32).
+
+    ``x`` and ``g`` (N, C) contiguous, of one dtype (fp32 or bf16); ``d``
+    a 0-d fp32 tensor (read through its pointer) or contiguous fp32
+    (N, C), gathered through idx; ``idx`` (K,) int32 with entries in
+    [−1, N) (the dispatch checks), −1 a pad row (z 0, nothing to e2); all
+    on one CUDA device.  ``c`` a host float ≥ 0.  z = soft(x − g/d, c/d)
+    with both quotients true divisions, bit for bit the plain version's.
+    """
+    dev = x.device
+    _check("x", x, 2, BR_DTYPES, dev)
+    _check("g", g, 2, (x.dtype,), dev)
+    _check("idx", idx, 1, (torch.int32,), dev)
+    _check_cuda(dev, (("d", d),))
+    dense = d.dim() > 0
+    if g.shape != x.shape or (dense and d.shape != x.shape):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, g "
+                         f"{tuple(g.shape)}, d {tuple(d.shape)}")
+    K, C = idx.shape[0], x.shape[1]
+    z = torch.empty((K, C), dtype=torch.float32, device=dev)
+    if K == 0 or C == 0:
+        return z, torch.zeros((), dtype=torch.float32, device=dev)
+    blocks = compact_blocks(
+        K, C, torch.cuda.get_device_properties(dev).multi_processor_count)
+    # per-block partials, the ticket counter, e2
+    work = torch.empty(blocks + 2, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = library().compact_best_response_launch(
+            x.data_ptr(), g.data_ptr(), DTYPE_CODES[x.dtype], d.data_ptr(),
+            int(dense), float(c), idx.data_ptr(), z.data_ptr(),
+            work.data_ptr(), K, C, blocks, stream)
+    _raise_on(rc, "compact_best_response")
+    compact_best_response.launches += 1
+    return z, work[blocks + 1]
+
+
 best_response.launches = 0
 best_response.plain = ref.flexa_best_response_ref
 apply_update.launches = 0
@@ -433,3 +501,5 @@ gather_rows.launches = 0
 gather_rows.plain = ref.gather_rows_ref
 scatter_rows.launches = 0
 scatter_rows.plain = ref.scatter_rows_ref
+compact_best_response.launches = 0
+compact_best_response.plain = ref.compact_best_response_ref

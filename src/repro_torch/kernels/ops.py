@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flexa_prox as _fp
+from repro_torch.kernels import gauss_seidel as _gs
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
 
@@ -161,6 +162,43 @@ def scatter_blocks(vals: torch.Tensor, inv, base: torch.Tensor
     if base.device.type == "cuda":
         return _fp.scatter_rows(vals.contiguous(), inv, base.contiguous())
     raise ValueError(f"no scatter_rows kernel for device {base.device}")
+
+
+def compact_best_response(x: torch.Tensor, g: torch.Tensor, d, c, idx):
+    """Fused gather + best response over the rows ``idx`` picks (−1 ⇒ a
+    pad row: z 0, nothing to e2) → (z (K, C) fp32, e2 0-d fp32).
+
+    x, g (N, C); ``d`` a scalar or dense (N, C), gathered through idx;
+    ``c`` a host float.  No path calls it: the reference's compacted path
+    solves in compact space, with no gather per iteration.
+    """
+    _on(x.device, g)
+    idx = _index(idx, x.shape[0], "idx", x.device)
+    if x.device.type == "cpu":
+        return ref.compact_best_response_ref(x, g, d, c, idx)
+    if x.device.type == "cuda":
+        return _fp.compact_best_response(x.contiguous(), g.contiguous(),
+                                         _on_card(d, x.device), float(c),
+                                         idx)
+    raise ValueError(f"no compact_best_response kernel for device "
+                     f"{x.device}")
+
+
+def gauss_seidel_sweep(At: torch.Tensor, colsq: torch.Tensor,
+                       x: torch.Tensor, r: torch.Tensor, c) -> torch.Tensor:
+    """One cyclic Gauss-Seidel sweep of the Lasso over x's n coordinates,
+    x and r = Ax − b updated in place → max |δ| (0-d fp32).
+
+    ``At`` is Aᵀ (n, m), ``colsq`` the floored ‖aᵢ‖² (n,); ``c`` the ℓ1
+    weight.  On the card one launch of the CUDA kernel; on the CPU the
+    eager per-coordinate loop of the plain version.
+    """
+    _on(x.device, At, colsq, r)
+    if x.device.type == "cpu":
+        return ref.gauss_seidel_sweep_ref(At, colsq, x, r, c)
+    if x.device.type == "cuda":
+        return _gs.gauss_seidel_sweep(At, colsq, x, r, float(c))
+    raise ValueError(f"no gauss_seidel_sweep kernel for device {x.device}")
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 64):

@@ -11,7 +11,12 @@ replaced written out.
 ``gather_rows_ref`` / ``scatter_rows_ref`` are the contracts the CUDA
 kernels of :mod:`repro_torch.kernels.flexa_prox` meet bit for bit,
 written as the reference's ``repro.kernels.ref`` oracle is: an index
-with −1 mapped to 0, then ``torch.where``.  ``ssd_scan_ref`` is the
+with −1 mapped to 0, then ``torch.where``; ``compact_best_response_ref``
+(their gather, then ``flexa_best_response_ref``) is that of
+``compact_best_response`` there: z bit for bit, e2 up to summation
+order.  ``gauss_seidel_sweep_ref`` is the contract of
+:mod:`repro_torch.kernels.gauss_seidel` up to the summation order of its
+dot products.  ``ssd_scan_ref`` is the
 contract of :mod:`repro_torch.kernels.ssd_scan` up to summation order;
 ``ssd_scan_ragged`` runs it on any S, padded as the reference's
 dispatch pads; ``ssd_decode_ref`` is the single-token step, which has no
@@ -152,6 +157,66 @@ def scatter_rows_ref(vals: torch.Tensor, inv: torch.Tensor,
     inv = inv.to(torch.int64)
     taken = vals[torch.clamp_min(inv, 0)].to(base.dtype)
     return torch.where((inv >= 0).unsqueeze(-1), taken, base)
+
+
+def compact_best_response_ref(x: torch.Tensor, g: torch.Tensor, d, c,
+                              idx: torch.Tensor
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused gather + best response over the active rows only.
+
+    x, g (N, C) (fp32 or bf16, read as fp32); idx (K,) with −1 padding;
+    d a scalar or dense (N, C), gathered through idx; c a scalar.  The
+    reference's oracle: gather x and g (pad rows read zeros), give pad
+    rows d = 1.0, then :func:`flexa_best_response_ref`.  So a pad row's
+    z is exactly 0 and adds nothing to e2.  Returns (z (K, C) fp32, e2
+    0-d fp32).
+    """
+    xc = gather_rows_ref(x, idx)
+    gc = gather_rows_ref(g, idx)
+    if not isinstance(d, torch.Tensor) or d.dim() == 0:
+        dc = d
+    else:
+        idx = idx.to(torch.int64)
+        taken = d.to(torch.float32)[torch.clamp_min(idx, 0)]
+        dc = torch.where((idx >= 0).unsqueeze(-1), taken,
+                         torch.ones((), dtype=torch.float32,
+                                    device=d.device))
+    return flexa_best_response_ref(xc, gc, dc, c)
+
+
+def gauss_seidel_sweep_ref(At: torch.Tensor, colsq: torch.Tensor,
+                           x: torch.Tensor, r: torch.Tensor, c
+                           ) -> torch.Tensor:
+    """One cyclic Gauss-Seidel sweep of the Lasso, in place; → max |δ|.
+
+    For i = 0 … n−1, against the residual r = Ax − b as the earlier
+    coordinates left it:
+
+        gᵢ = 2·aᵢᵀr,  dᵢ = 2·colsqᵢ,  zᵢ = soft(xᵢ − gᵢ/dᵢ, c/dᵢ),
+        δ = zᵢ − xᵢ,  r ← r + aᵢ·δ,  xᵢ ← zᵢ
+
+    (the body of the reference's ``lax.fori_loop``,
+    ``src/repro/baselines/gauss_seidel.py:37-50``).  ``At`` is Aᵀ, (n, m)
+    (row i is column aᵢ), ``colsq`` the floored ‖aᵢ‖² (n,), x (n,) and r
+    (m,) fp32, updated in place; ``c`` a float.  Both quotients are true
+    fp32 divisions.  Returns max |δ| over the sweep as a 0-d fp32 tensor
+    (NaN if any δ is NaN, as ``jnp.maximum``).  An eager loop of a few
+    torch calls per coordinate: the plain version, for the CPU.
+    """
+    f32 = torch.float32
+    ct = torch.as_tensor(c, dtype=f32, device=x.device)
+    max_delta = torch.zeros((), dtype=f32, device=x.device)
+    for i in range(At.shape[0]):
+        a = At[i]
+        xi = x[i]
+        d = 2.0 * colsq[i]
+        w = xi - (2.0 * torch.dot(a, r)) / d
+        z = torch.sign(w) * torch.clamp_min(torch.abs(w) - ct / d, 0.0)
+        delta = z - xi
+        r.add_(a * delta)
+        x[i] = z
+        max_delta = torch.maximum(max_delta, torch.abs(delta))
+    return max_delta
 
 
 def attention_scale(D: int) -> float:

@@ -3,14 +3,19 @@
 Every adapter has the call convention
 ``adapter(problem, x0, cfg: SolverConfig, **options) -> SolverResult``.
 The port registers the FLEXA family (``flexa``, ``flexa_compiled``,
-``jacobi``); the reference's baselines and ``pflexa`` are not ported yet
-and raise :class:`NotImplementedError` by name.
+``jacobi``) and the paper's §4 baselines (``fista``, ``admm``,
+``grock``, ``gauss_seidel``) with the reference's adapters; ``pflexa``
+is not ported yet and raises :class:`NotImplementedError` by name.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
+from repro_torch.baselines import admm as _admm
+from repro_torch.baselines import fista as _fista
+from repro_torch.baselines import gauss_seidel as _gs
+from repro_torch.baselines import grock as _grock
 from repro_torch.config.base import SolverConfig
 from repro_torch.core import flexa as _flexa
 from repro_torch.problems.base import Problem
@@ -19,7 +24,7 @@ from repro_torch.solvers.result import SolverResult
 _REGISTRY: dict[str, Callable] = {}
 
 #: Methods of the reference registry that this port does not have yet.
-NOT_YET_PORTED = ("admm", "fista", "gauss_seidel", "grock", "pflexa")
+NOT_YET_PORTED = ("pflexa",)
 
 
 def register(name: str, fn: Callable | None = None):
@@ -83,3 +88,39 @@ def _solve_jacobi(problem: Problem, x0, cfg: SolverConfig,
                      cfg=dataclasses.replace(cfg, jacobi=True))
     r.method = "jacobi"
     return r
+
+
+# ------------------------------------------------------------------ #
+# Baselines (paper §4 benchmarks)                                    #
+# ------------------------------------------------------------------ #
+@register("fista")
+def _solve_fista(problem: Problem, x0, cfg: SolverConfig,
+                 **options) -> SolverResult:
+    _reject_unknown(options)
+    return _fista.solve(problem, x0=x0, max_iters=cfg.max_iters, tol=cfg.tol)
+
+
+@register("admm")
+def _solve_admm(problem: Problem, x0, cfg: SolverConfig,
+                **options) -> SolverResult:
+    _reject_unknown(options, ("rho",))
+    # `rho` here is ADMM's penalty parameter, unrelated to cfg.rho (the
+    # FLEXA greedy-selection factor) — hence a method option, not config.
+    return _admm.solve(problem, rho=options.get("rho", 10.0), x0=x0,
+                       max_iters=cfg.max_iters, tol=cfg.tol)
+
+
+@register("grock")
+def _solve_grock(problem: Problem, x0, cfg: SolverConfig,
+                 **options) -> SolverResult:
+    _reject_unknown(options, ("P",))
+    return _grock.solve(problem, P=options.get("P", 16), x0=x0,
+                        max_iters=cfg.max_iters, tol=cfg.tol)
+
+
+@register("gauss_seidel")
+def _solve_gauss_seidel(problem: Problem, x0, cfg: SolverConfig,
+                        **options) -> SolverResult:
+    # One "iteration" is a full cyclic sweep over all n coordinates.
+    _reject_unknown(options)
+    return _gs.solve(problem, x0=x0, max_iters=cfg.max_iters, tol=cfg.tol)

@@ -92,7 +92,7 @@ def test_unported_parts_raise(pair):
         FlexaClient(device="cpu", backend="nope")
     client = FlexaClient(device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        client.run(SoloSpec(problem=pt, method="fista"))
+        client.run(SoloSpec(problem=pt, method="pflexa"))
     with pytest.raises(SpecError):
         client.submit(object())
     with pytest.raises(SpecError):

@@ -24,9 +24,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.baselines import gauss_seidel as jgs
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.problems import lasso as jlasso
 from repro_torch.kernels import flexa_prox
+from repro_torch.kernels import gauss_seidel as tgs
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -384,3 +387,120 @@ def test_batched_grid_depends_on_n_b_and_sms_only():
     assert blocks(100_000, 1, 132) == 49
     assert blocks(10**8, 8, 132) == 8 * 132 // 8
     assert blocks(10**8, 2000, 132) == 1
+
+
+# ------------------------------------------------------------------ #
+# compact_best_response, gauss_seidel_sweep                          #
+# ------------------------------------------------------------------ #
+@pytest.mark.parametrize("C", [64, 200])
+@pytest.mark.parametrize("scalar_d", [True, False])
+def test_compact_best_response_matches_reference(C, scalar_d):
+    """The plain version and the CPU dispatch against the reference's
+    oracle and its Pallas kernel in interpret mode (the reference's own
+    sweep, ``tests/test_kernels.py:253``): z exactly (the same fp32
+    operations, c/d and g/d true divisions), pad rows 0; e2 within 1e-5
+    relative (summed in another order)."""
+    n_rows, k = 16, 6
+    idx, _ = _plan_arrays(n_rows, k, seed=C)
+    rng = np.random.default_rng(C + int(scalar_d))
+    x = rng.standard_normal((n_rows, C)).astype(np.float32)
+    g = rng.standard_normal((n_rows, C)).astype(np.float32)
+    d = np.float32(2.0) if scalar_d else \
+        rng.uniform(0.5, 3, (n_rows, C)).astype(np.float32)
+    jargs = (jnp.asarray(x), jnp.asarray(g), jnp.asarray(d))
+    zr, er = jref.compact_best_response_ref(*jargs, 0.3, jnp.asarray(idx))
+    zi, ei = jops.compact_best_response(*jargs, 0.3, jnp.asarray(idx),
+                                        force="interpret")
+    targs = (torch.from_numpy(x), torch.from_numpy(g),
+             torch.from_numpy(np.array(d)))
+    for z, e2 in (tref.compact_best_response_ref(
+                      *targs, 0.3, torch.from_numpy(idx)),
+                  tops.compact_best_response(*targs, 0.3, idx)):
+        assert z.dtype == torch.float32 and z.shape == (idx.size, C)
+        assert e2.dtype == torch.float32 and e2.dim() == 0
+        np.testing.assert_array_equal(z.numpy(), np.asarray(zr))
+        np.testing.assert_array_equal(z.numpy(), np.asarray(zi))
+        np.testing.assert_array_equal(z.numpy()[idx < 0], 0.0)
+        for want in (er, ei):
+            np.testing.assert_allclose(float(e2), float(want), rtol=1e-5)
+
+
+def test_compact_best_response_is_gather_then_best_response():
+    """On bf16 rows and the (n, 1) layout too: the port's composition
+    ``gather_blocks`` → ``flexa_best_response`` (pad rows given d = 1)
+    equals it bit for bit, e2 included (the same sum)."""
+    idx, _ = _plan_arrays(40, 23, seed=1)
+    rng = np.random.default_rng(1)
+    for C, dtype in ((1, torch.float32), (37, torch.bfloat16)):
+        x = torch.from_numpy(rng.standard_normal((40, C)).astype(
+            np.float32)).to(dtype)
+        g = torch.from_numpy(rng.standard_normal((40, C)).astype(
+            np.float32)).to(dtype)
+        d = torch.from_numpy(rng.uniform(0.5, 3, (40, C)).astype(
+            np.float32))
+        dc = tops.gather_blocks(d, idx)
+        dc[torch.from_numpy(idx) < 0] = 1.0
+        want = tops.flexa_best_response(tops.gather_blocks(x, idx),
+                                        tops.gather_blocks(g, idx), dc, 0.2)
+        got = tops.compact_best_response(x, g, d, 0.2, idx)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_compact_best_response_dispatch_rejects_out_of_range_idx():
+    x = torch.ones((8, 4))
+    for bad in (8, -2):
+        with pytest.raises(IndexError):
+            tops.compact_best_response(x, x, 1.0, 0.1, [0, bad])
+
+
+def test_compact_best_response_grid_depends_on_k_c_and_sms_only():
+    blocks = flexa_prox.compact_blocks
+    assert blocks(1, 5000, 132) == 1 and blocks(500, 64, 132) == 500
+    assert blocks(65536, 5000, 132) == 8 * 132
+    assert blocks(65536, 1, 132) == 256 and blocks(256, 1, 132) == 1
+    assert blocks(10**7, 1, 132) == 8 * 132
+
+
+def _gs_state(m, n, seed):
+    """The reference's instance and the port's sweep inputs from it: At,
+    colsq, x = 0 and r = −b."""
+    p = jlasso.nesterov_instance(m=m, n=n, nnz_frac=0.1, c=1.0, seed=seed)
+    A = torch.from_numpy(np.array(p.data["A"]))
+    b = torch.from_numpy(np.array(p.data["b"]))
+    colsq = torch.clamp_min((A * A).sum(0), 1e-12)
+    return p, A.T.contiguous(), colsq, torch.zeros(n), -b
+
+
+def test_gauss_seidel_sweep_matches_reference_sweep():
+    """One and two plain sweeps from x = 0 against the reference's swept
+    x and its history's V and max |δ| (``repro.baselines.gauss_seidel``):
+    within 1e-5 (the dot products sum in another order)."""
+    p, At, colsq, x, r = _gs_state(30, 96, seed=2)
+    for sweeps in (1, 2):
+        rj = jgs.solve(p, max_iters=sweeps, tol=0.0)
+        xs, rs = x.clone(), r.clone()
+        for k in range(sweeps):
+            stat = tops.gauss_seidel_sweep(At, colsq, xs, rs, 1.0)
+            v = float(rs @ rs + xs.abs().sum())
+            np.testing.assert_allclose(v, rj.history["V"][k], rtol=1e-5)
+            np.testing.assert_allclose(float(stat), rj.history["stat"][k],
+                                       rtol=1e-5)
+        np.testing.assert_allclose(xs.numpy(), np.asarray(rj.x), atol=1e-5)
+        # r is kept as A·x − b
+        np.testing.assert_allclose(rs.numpy(), (At.T @ xs + r).numpy(),
+                                   atol=1e-5)
+
+
+def test_gauss_seidel_cpu_dispatch_never_touches_the_kernel():
+    _, At, colsq, x, r = _gs_state(8, 20, seed=0)
+    before = tgs.gauss_seidel_sweep.launches
+    stat = tops.gauss_seidel_sweep(At, colsq, x, r, 1.0)
+    assert tgs.gauss_seidel_sweep.launches == before
+    assert tgs._lib is None and float(stat) > 0
+    assert tgs.gauss_seidel_sweep.plain is tref.gauss_seidel_sweep_ref
+    before = flexa_prox.compact_best_response.launches
+    tops.compact_best_response(torch.ones((4, 3)), torch.ones((4, 3)), 2.0,
+                               0.1, [2, -1])
+    assert flexa_prox.compact_best_response.launches == before
+    assert flexa_prox._lib is None

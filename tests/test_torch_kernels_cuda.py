@@ -21,6 +21,11 @@ it equals the plain z bit for bit; its e2 sums in another order: within
 ``apply_update`` / ``batched_apply_update`` equal their plain versions
 bit for bit (elementwise, each op rounded as the plain version rounds
 it); a FLEXA iteration that calls them can be captured in a CUDA graph.
+``compact_best_response`` gathers and computes as ``best_response``
+does: z bit for bit, pad rows exactly 0, e2 within 1e-5 relative.
+``gauss_seidel_sweep`` sums its dot products in another order than its
+plain version: after 3 sweeps x within 1e-5 and max |δ| within 1e-5
+relative; two runs from one start give the same bits.
 """
 import numpy as np
 import pytest
@@ -28,6 +33,7 @@ import torch
 
 from repro_torch.kernels import build, flexa_prox
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import gauss_seidel as tgs
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd_scan as tssd
@@ -714,3 +720,153 @@ def test_batch_spec_on_the_card_matches_the_cpu(cuda, jacobi):
         want = (100, 100 if jacobi else 0) if dev == "cuda" else (0, 0)
         assert launched == want, (dev, launched)
     np.testing.assert_allclose(out["cuda"].x, out["cpu"].x, atol=1e-5)
+
+
+#: (n_rows, k_active, capacity, C) of the compact_best_response sweep: the
+#: (n, 1) layout of ℓ1 block size 1, C 64, ragged 200, fig1d's m = 5000
+#: (the wide vector path) and 4999 (its scalar loop), all-padding.
+CBR_CASES = [(300, 170, 256, 1), (40, 23, 32, 64), (40, 23, 32, 200),
+             (64, 37, 64, 5000), (64, 37, 64, 4999), (16, 0, 8, 64),
+             (16, 0, 8, 1)]
+
+
+def cbr_inputs(n_rows, k, cap, C, dtype, dense, seed, device):
+    g0 = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((n_rows, C), generator=g0).to(dtype).to(device)
+    g = (0.5 * torch.randn((n_rows, C), generator=g0)).to(dtype).to(device)
+    d = (torch.rand((n_rows, C), generator=g0) * 2.5 + 0.5).to(device) \
+        if dense else torch.tensor(1.7, device=device)
+    idx, _ = _plan_arrays(n_rows, k, seed=seed, cap=cap)
+    return x, g, d, torch.from_numpy(idx).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CBR_CASES, ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dense", [False, True])
+def test_compact_best_response_kernel_matches_plain_version(cuda, case,
+                                                            dtype, dense):
+    x, g, d, idx = cbr_inputs(*case, getattr(torch, dtype), dense,
+                              seed=case[3] + case[1], device=cuda)
+    n0 = flexa_prox.compact_best_response.launches
+    z, e2 = tops.compact_best_response(x, g, d, 0.3, idx)
+    torch.cuda.synchronize()
+    assert flexa_prox.compact_best_response.launches == n0 + 1
+    z0, e0 = flexa_prox.compact_best_response.plain(x, g, d, 0.3, idx)
+    assert z.dtype == torch.float32 and z.shape == (case[2], case[3])
+    assert torch.equal(z, z0)
+    assert bool((z[idx < 0] == 0).all())
+    assert abs(float(e2) - float(e0)) <= 1e-5 * float(e0)
+    z2, e22 = tops.compact_best_response(x, g, d, 0.3, idx)
+    assert torch.equal(z2, z) and torch.equal(e22, e2)
+
+
+@pytest.mark.cuda
+def test_compact_best_response_kernel_refuses_what_it_cannot_take(cuda):
+    x = torch.ones((8, 40), device=cuda)
+    d = torch.tensor(1.0, device=cuda)
+    idx = torch.tensor([3, 0, -1], dtype=torch.int32, device=cuda)
+    bad = [
+        (x.cpu(), x, d, idx, ValueError),                   # a CPU tensor
+        (x, x, d, idx.cpu(), ValueError),
+        (x, x.to(torch.bfloat16), d, idx, TypeError),       # mixed dtypes
+        (x.half(), x.half(), d, idx, TypeError),            # fp16 x, g
+        (x, x, d.double(), idx, TypeError),                 # d not fp32
+        (x, x, d, idx.long(), TypeError),                   # idx not int32
+        (x, torch.ones((8, 41), device=cuda), d, idx, ValueError),
+        (x, x, torch.ones((8, 41), device=cuda), idx, ValueError),
+        (x.reshape(-1), x.reshape(-1), d, idx, ValueError),  # not (N, C)
+    ]
+    for xx, gg, dd, ii, err in bad:
+        with pytest.raises(err):
+            flexa_prox.compact_best_response(xx, gg, dd, 0.1, ii)
+    for out_of_range in (8, -2):
+        with pytest.raises(IndexError):
+            tops.compact_best_response(
+                x, x, d, 0.1, torch.tensor([0, out_of_range], device=cuda))
+
+
+def gs_inputs(m, n, seed, device):
+    """At (n, m), colsq (n,), x (n,) = 0 and r = −b (m,) of a Nesterov
+    instance, fp32 on ``device``."""
+    from repro_torch.problems.lasso import nesterov_instance
+    p = nesterov_instance(m=m, n=n, nnz_frac=0.05, seed=seed, device=device)
+    A, b = p.data["A"], p.data["b"]
+    colsq = torch.clamp_min((A * A).sum(0), 1e-12)
+    return A.T.contiguous(), colsq, torch.zeros(n, device=device), -b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(64, 300), (501, 700), (500, 2000)],
+                         ids=str)
+def test_gauss_seidel_sweep_kernel_matches_plain_version(cuda, m, n):
+    """3 sweeps from x = 0 (m = 501: the scalar loop; the others the
+    float4 one): x within 1e-5, each sweep's max |δ| within 1e-5
+    relative, and a second run from the same start bit for bit."""
+    At, colsq, x, r = gs_inputs(m, n, seed=m, device=cuda)
+    runs = []
+    for sweep in (tops.gauss_seidel_sweep, tops.gauss_seidel_sweep,
+                  tgs.gauss_seidel_sweep.plain):
+        xs, rs = x.clone(), r.clone()
+        n0 = tgs.gauss_seidel_sweep.launches
+        stats = [sweep(At, colsq, xs, rs, 1.0) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert tgs.gauss_seidel_sweep.launches == n0 + (
+            3 if sweep is tops.gauss_seidel_sweep else 0)
+        runs.append((xs, rs, torch.stack(stats)))
+    (xk, rk, sk), (xk2, rk2, sk2), (xp, rp, sp) = runs
+    assert torch.equal(xk, xk2) and torch.equal(rk, rk2) \
+        and torch.equal(sk, sk2)
+    assert float((xk - xp).abs().max()) <= 1e-5
+    assert bool(((sk - sp).abs() <= 1e-5 * sp.abs()).all())
+    assert bool((sk > 0).all()) and bool(torch.isfinite(rk).all())
+
+
+@pytest.mark.cuda
+def test_gauss_seidel_sweep_kernel_refuses_what_it_cannot_take(cuda):
+    At, colsq, x, r = gs_inputs(16, 40, seed=0, device=cuda)
+    bad = [
+        (At.cpu(), colsq, x, r, ValueError),
+        (At, colsq, x, r.cpu(), ValueError),
+        (At.double(), colsq, x, r, TypeError),
+        (At, colsq, x.half(), r, TypeError),
+        (At.T, colsq, x, r, ValueError),                    # not contiguous
+        (At, colsq[:-1], x, r, ValueError),                 # shapes
+        (At, colsq, x, r[:-1], ValueError),
+    ]
+    for a, cs, xx, rr, err in bad:
+        with pytest.raises(err):
+            tgs.gauss_seidel_sweep(a, cs, xx, rr, 1.0)
+    m = tgs.MAX_ROWS + 4                                  # r won't fit
+    with pytest.raises(ValueError, match="shared memory"):
+        tgs.gauss_seidel_sweep(torch.zeros((2, m), device=cuda),
+                               torch.ones(2, device=cuda),
+                               torch.zeros(2, device=cuda),
+                               torch.zeros(m, device=cuda), 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,options", [
+    ("fista", {}), ("admm", {"rho": 10.0}), ("grock", {"P": 4}),
+    ("gauss_seidel", {})], ids=str)
+def test_baselines_on_the_card_match_the_cpu(cuda, method, options):
+    """Each baseline through ``SoloSpec`` on the card agrees with the CPU
+    within 1e-4 (products sum in other orders); Gauss-Seidel launches its
+    kernel once per sweep."""
+    from repro_torch.client import FlexaClient, SoloSpec
+    from repro_torch.config.base import SolverConfig
+    from repro_torch.problems.lasso import nesterov_instance
+
+    cfg = SolverConfig(max_iters=8 if method == "gauss_seidel" else 100,
+                       tol=0.0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = nesterov_instance(m=40, n=120, nnz_frac=0.1, seed=0, device=dev)
+        n0 = tgs.gauss_seidel_sweep.launches
+        out[dev] = FlexaClient(device=dev, solver=cfg).run(
+            SoloSpec(problem=p, method=method, options=options))
+        want = cfg.max_iters if (dev == "cuda"
+                                 and method == "gauss_seidel") else 0
+        assert tgs.gauss_seidel_sweep.launches - n0 == want
+    assert out["cuda"].iters == out["cpu"].iters == cfg.max_iters
+    np.testing.assert_allclose(out["cuda"].x, out["cpu"].x, atol=1e-4)
