@@ -44,7 +44,10 @@ each failing the run when its check fails:
                FPA, FISTA, ADMM and GS; ``gauss_seidel_sweep`` launched
                once per sweep (100, by counter); V of GS's final x,
                recomputed on the host in float64, within 1e-5 relative of
-               the reported V.  The ranking is printed, not gated.
+               the reported V.  The ranking is printed, not gated.  Then
+               one sweep from x = 0 at fig1d through ``gauss_seidel_sweep``
+               and through its plain version on the same inputs: V and
+               max |δ| within 1e-5 relative, x within 1e-5 × max |x|.
 5. path     — slice 1's main path: ``FlexaClient().run(PathSpec(...,
                compact=True))`` at fig1d, with the kernels' launch
                counters set to 0 just before and read just after (all
@@ -141,7 +144,8 @@ all-pad idx, K = 1: z bitwise, pad rows 0, e2 within 1e-5 relative, a
 second launch bitwise.  And ``gauss_seidel_sweep`` at (m, n) = (500,
 2000), 3 sweeps from x = 0: x within 1e-5 and each sweep's max |δ|
 within 1e-5 relative of the plain version (the dot products sum in
-another order), a second run bitwise.
+another order), a second run bitwise; at the race's shape it is held in
+the fig1 phase.
 
 Then a ``{"kernels": [...]}`` line (device time, plain time, library
 time and bound of each kernel at its path's shapes), the card's name and
@@ -250,7 +254,15 @@ CBR_SWEEP = [(100_000, 35926, 65536, 1), (2000, 700, 1024, 1),
              (2000, 700, 1024, 64), (2000, 700, 1024, 200),
              (3000, 1100, 2048, 5000), (1000, 300, 512, 4999),
              (300, 0, 64, 64), (300, 0, 64, 1), (1000, 1, 1, 5000)]
-#: (m, n, sweeps) of the gauss_seidel_sweep check.
+#: gauss_seidel_sweep against its plain version, one sweep from x = 0 at
+#: fig1d: V = rᵀr + c‖x‖₁ and max |δ| within GS_SWEEP_RTOL relative, and
+#: max |x − x_plain| within GS_SWEEP_XTOL × max |x_plain| (the dot products
+#: sum in another order, and 100000 sequential updates carry the rounding
+#: forward; PERF.md gives the readings this was set from).
+GS_SWEEP_RTOL = 1e-5
+GS_SWEEP_XTOL = 1e-5
+#: (m, n, sweeps) of the small gauss_seidel_sweep check: several sweeps,
+#: where x stays small enough for an absolute 1e-5.
 GS_CHECK = (500, 2000, 3)
 FA_YI = (4, 32, 4, 4096, 4096, 128, True)
 
@@ -696,7 +708,7 @@ def phase_kernels(torch, fp, ssd, fa, gs, dev):
     from repro_torch.kernels import ops as kops
     err["compact_best_response"], cbr_e2_rel, cbr_cases = cbr_sweep(
         torch, fp, kops, dev)
-    err["gauss_seidel_sweep"], gs_delta_rel = gs_check(torch, gs, dev)
+    gs_dx, gs_delta_rel = gs_check(torch, gs, dev)
     say("kernels", max_abs_err=err, gather_ms=times, ssd_scan_cases=n_ssd,
         ssd_scan_max_abs_err_y_h=ssd_err, best_response_cases=n_br,
         best_response_max_e2_rel_err=br_e2_rel, flash_attention_cases=n_fa,
@@ -705,6 +717,7 @@ def phase_kernels(torch, fp, ssd, fa, gs, dev):
             bat_e2_rel), compact_best_response_cases=cbr_cases,
         compact_best_response_max_e2_rel_err=cbr_e2_rel,
         gauss_seidel_sweep_check=dict(zip(("m", "n", "sweeps"), GS_CHECK)),
+        gauss_seidel_sweep_max_abs_dx=gs_dx,
         gauss_seidel_sweep_max_delta_rel_err=gs_delta_rel)
     return err
 
@@ -999,9 +1012,9 @@ def phase_fig1(torch, fp, gs, p, dev):
     """The paper's Fig. 1 race at fig1d (``benchmarks/fig1.py:run_group``'s
     field for 16 processors) on the solo phase's instance, each method a
     ``SoloSpec`` through ``FlexaClient`` with tol 0; then one Gauss-Seidel
-    sweep from x = 0 at fig1d timed through the kernel and its plain
-    version (CUDA events).  Returns (the sweep kernel's launches in the
-    race, the sweep's timing)."""
+    sweep from x = 0 at fig1d through the kernel and its plain version,
+    gated and timed (``gs_sweep_check``).  Returns (the sweep kernel's
+    launches in the race, the sweep's readings and times)."""
     from repro_torch.client import FlexaClient, SoloSpec
     from repro_torch.config.base import SolverConfig
 
@@ -1037,6 +1050,10 @@ def phase_fig1(torch, fp, gs, p, dev):
                "rel_err_final": (V[-1] - p.v_star) / p.v_star,
                # the history clock's first stamp: set-up and one iteration
                "first_iter_s": T[0],
+               # V after 1, 10, 100, 1000 iterations: what a run of the
+               # reference at fig1d from the same seed would be held to
+               "V_at": {k: V[k - 1] for k in (1, 10, 100, 1000)
+                        if k <= len(V)},
                "launches": {k: w.launches - before[k]
                             for k, w in counters.items()
                             if w.launches > before[k]}}
@@ -1062,39 +1079,69 @@ def phase_fig1(torch, fp, gs, p, dev):
     check(gs_v_rel <= 1e-5, f"fig1 GS: reported V {v_gs} vs {v_host} "
           f"recomputed on the host (rel {gs_v_rel})")
 
-    # one sweep from x = 0 at fig1d: kernel and plain version
-    A, b = p.data["A"], p.data["b"]
-    At = A.T.contiguous()
-    colsq = torch.clamp_min((A * A).sum(0), 1e-12)
-    sweep = {}
-    for key, fn in (("ms", gs.gauss_seidel_sweep),
-                    ("plain_ms", gs.gauss_seidel_sweep.plain)):
-        x, r0 = torch.zeros(p.n, device=dev), -b
-        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda.synchronize()
-        t0.record()
-        fn(At, colsq, x, r0, p.g_weight)
-        t1.record()
-        torch.cuda.synchronize()
-        sweep[key] = t0.elapsed_time(t1)
-        sweep[key.replace("ms", "x")] = x
-    sweep_dx = float((sweep.pop("x") - sweep.pop("plain_x")).abs().max())
-    n, m = At.shape
-    sweep.update({
-        "shape": [n, m], "first_sweep_max_abs_dx": sweep_dx,
-        "race_ms_per_sweep": rows["GS"]["ms_per_iter"],
-        # Aᵀ read once; x and colsq read, x written; r read and written
-        "bound_ms": bytes_ms(4 * n * m + 12 * n + 8 * m),
-        "ops_ms": 4 * n * m / FP32_OPS_PER_S * 1e3})
-    del At, colsq
-    torch.cuda.empty_cache()
+    sweep = gs_sweep_check(torch, gs, p, dev)
+    sweep["race_ms_per_sweep"] = rows["GS"]["ms_per_iter"]
     ranking = sorted(rows, key=lambda k: (not math.isfinite(
         rows[k]["rel_err_final"]), rows[k]["rel_err_final"]))
     say("fig1", instance="fig1d", v_star=p.v_star, iters=FIG1_ITERS,
         gs_sweeps=sweeps, launches=launches,
         ranking_by_final_rel_err=ranking,
-        gs_V_host_float64_rel_err=gs_v_rel, gs_first_sweep=sweep)
+        gs_V_host_float64_rel_err=gs_v_rel)
     return launches["gauss_seidel_sweep"], sweep
+
+
+def gs_sweep_check(torch, gs, p, dev):
+    """gauss_seidel_sweep against its plain version at the race's shape:
+    one sweep from x = 0 (r = −b) on the fig1d instance through each, on
+    the same inputs, timed with CUDA events.  Gates: V = rᵀr + c‖x‖₁ of
+    each (float64, from its own x and r) and the sweeps' max |δ| within
+    ``GS_SWEEP_RTOL`` relative; max |x − x_plain| within ``GS_SWEEP_XTOL``
+    × max |x_plain|.  The readings are printed before the gates."""
+    A, b = p.data["A"], p.data["b"]
+    At = A.T.contiguous()
+    colsq = torch.clamp_min((A * A).sum(0), 1e-12)
+    runs, sweep = {}, {}
+    for key, fn in (("ms", gs.gauss_seidel_sweep),
+                    ("plain_ms", gs.gauss_seidel_sweep.plain)):
+        x, r = torch.zeros(p.n, device=dev), -b
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0.record()
+        delta = fn(At, colsq, x, r, p.g_weight)
+        t1.record()
+        torch.cuda.synchronize()
+        sweep[key] = t0.elapsed_time(t1)
+        r64, x64 = r.double(), x.double()
+        runs[key] = (x, float(delta),
+                     float(r64 @ r64 + p.g_weight * x64.abs().sum()))
+    (xk, dk, vk), (xp, dp, vp) = runs["ms"], runs["plain_ms"]
+    diff = (xk - xp).abs()
+    x_scale = float(xp.abs().max())
+    n, m = At.shape
+    sweep.update({
+        "shape": [n, m], "max_abs_dx": float(diff.max()),
+        "max_abs_x": x_scale,
+        "dx_rel_to_max_x": float(diff.max()) / x_scale,
+        "coords_differ": int((diff > 0).sum()),
+        "support": int((xp != 0).sum()),
+        "support_differ": int(((xk != 0) != (xp != 0)).sum()),
+        "V": vk, "V_plain": vp, "V_rel_err": abs(vk - vp) / abs(vp),
+        "max_delta": dk, "max_delta_plain": dp,
+        "max_delta_rel_err": abs(dk - dp) / abs(dp),
+        # Aᵀ read once; x and colsq read, x written; r read and written
+        "bound_ms": bytes_ms(4 * n * m + 12 * n + 8 * m),
+        "ops_ms": 4 * n * m / FP32_OPS_PER_S * 1e3})
+    del At, colsq, runs, xk, xp, diff
+    torch.cuda.empty_cache()
+    print("fig1 GS sweep vs plain: " + json.dumps(sweep), flush=True)
+    check(sweep["V_rel_err"] <= GS_SWEEP_RTOL
+          and sweep["max_delta_rel_err"] <= GS_SWEEP_RTOL,
+          f"gauss_seidel_sweep vs its plain version at fig1d: V rel "
+          f"{sweep['V_rel_err']}, max |δ| rel {sweep['max_delta_rel_err']}")
+    check(sweep["max_abs_dx"] <= GS_SWEEP_XTOL * x_scale,
+          f"gauss_seidel_sweep vs its plain version at fig1d: max |dx| "
+          f"{sweep['max_abs_dx']} > {GS_SWEEP_XTOL} × max |x| {x_scale}")
+    return sweep
 
 
 def cbr_on_path_state(torch, fp, p, r, cfg):
@@ -1922,8 +1969,7 @@ def kernel_line(torch, fp, ssd, fa, r, launches, serve_launches, err,
     rows += update_rows(torch, fp, launches, err, dev)
     rows.append(cbr_row(torch, fp, err["compact_best_response"], cbr_state,
                         dev))
-    rows.append(gs_row(launches["gauss_seidel_sweep"],
-                       err["gauss_seidel_sweep"], gs_sweep))
+    rows.append(gs_row(launches["gauss_seidel_sweep"], gs_sweep))
     return rows
 
 
@@ -1968,9 +2014,10 @@ def cbr_row(torch, fp, err, state, dev):
             "timed": {"path_state": path}}
 
 
-def gs_row(launches, err, sweep):
-    """gauss_seidel_sweep: one sweep from x = 0 at fig1d (``phase_fig1``),
-    CUDA events around one launch and around the plain version's loop.
+def gs_row(launches, sweep):
+    """gauss_seidel_sweep: one sweep from x = 0 at fig1d
+    (``gs_sweep_check``), CUDA events around one launch and around the
+    plain version's loop; max_abs_err is that sweep's max |x − x_plain|.
     Bound: Aᵀ read once over HBM (the operations, 4 per element, take
     less); the sweep is sequential, so latency, not this, bounds it."""
     return {"name": "gauss_seidel_sweep", "route": "cuda",
@@ -1979,7 +2026,7 @@ def gs_row(launches, err, sweep):
             "tpu_kernel": False,
             "launches": launches,
             "launches_on": "the fig1 phase's GS run (one per sweep)",
-            "max_abs_err": err,
+            "max_abs_err": sweep["max_abs_dx"],
             "ms": round(sweep["ms"], 4),
             "plain_ms": round(sweep["plain_ms"], 4),
             "bound_ms": round(sweep["bound_ms"], 5), "bound_by": "bytes",

@@ -4,8 +4,9 @@ Each source becomes its own library with a plain C interface, compiled
 by ``nvcc -gencode arch=compute_90a,code=sm_90a -O3`` into
 ``build/repro_torch/`` at the root of the checkout (listed in
 .gitignore) at first use, and loaded with ``ctypes`` by the module that
-binds it.  A library's file name carries a hash of its source and the
-flags, so an edited source is rebuilt.  :func:`build_all` starts one
+binds it.  The sources share device helpers through ``csrc/*.cuh``.  A
+library's file name carries a hash of its source, those headers and the
+flags, so an edited source or header is rebuilt.  :func:`build_all` starts one
 ``nvcc`` per source, all at once.  Nothing is built at import, and a
 failed build raises.
 """
@@ -43,7 +44,8 @@ def find_nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{source.stem}-{digest[:16]}.so"
 

@@ -62,6 +62,8 @@
 #include <cuda_fp16.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr long long kNarrowCols = 32;
@@ -223,20 +225,6 @@ bool scatter_by_out(int out_dtype, const void* vals, const int* inv,
 // ----------------------------------------------------- compact best response
 constexpr int kCbrNarrowThreads = 256;
 
-// soft(w, t) = sign(w) * max(|w| - t, 0), as torch.sign * clamp_min.
-__device__ __forceinline__ float soft(float w, float t) {
-  const float a = __fsub_rn(fabsf(w), t);
-  const float m = a > 0.f ? a : 0.f;
-  const float s = w > 0.f ? 1.f : (w < 0.f ? -1.f : 0.f);
-  return s * m;
-}
-
-// w = x - g / d, then the threshold t: each quotient a true division.
-__device__ __forceinline__ float response(float xf, float gf, float d,
-                                          float t) {
-  return soft(__fsub_rn(xf, __fdiv_rn(gf, d)), t);
-}
-
 // Four consecutive elements as fp32 (16 bytes of fp32, 8 of bf16).
 template <typename T> struct Load4;
 template <> struct Load4<float> {
@@ -254,47 +242,6 @@ template <> struct Load4<__nv_bfloat16> {
     for (int q = 0; q < 4; ++q) v[q] = __bfloat162float(e[q]);
   }
 };
-
-// Sum of v over the block (blockDim.x a multiple of 32), fixed order;
-// valid in thread 0.
-__device__ __forceinline__ float block_sum(float v, float* sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  if (lane == 0) sh[warp] = v;
-  __syncthreads();
-  v = threadIdx.x < (blockDim.x >> 5) ? sh[threadIdx.x] : 0.f;
-  if (warp == 0) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
-
-// The block's partial of e2 into partials[blockIdx.x]; the last block to
-// arrive sums all partials in index order into *e2.
-__device__ __forceinline__ void finish_e2(float acc, float* partials,
-                                          unsigned* ticket, float* e2) {
-  __shared__ float sh[32];
-  __shared__ bool last;
-  const float s = block_sum(acc, sh);
-  if (threadIdx.x == 0) {
-    partials[blockIdx.x] = s;
-    __threadfence();                      // partial visible before ticket
-    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  float p = 0.f;
-  for (unsigned j = threadIdx.x; j < gridDim.x; j += blockDim.x)
-    p += __ldcg(partials + j);
-  __syncthreads();                        // sh is reused
-  p = block_sum(p, sh);
-  if (threadIdx.x == 0) *e2 = p;
-}
 
 template <typename T, bool kDenseD, bool kVec>
 __global__ void compact_br_wide(const T* __restrict__ x,
@@ -351,7 +298,7 @@ __global__ void compact_br_wide(const T* __restrict__ x,
       }
     }
   }
-  finish_e2(acc, partials, ticket, e2);
+  grid_sum(acc, partials, ticket, e2);
 }
 
 template <typename T, bool kDenseD>
@@ -390,7 +337,7 @@ __global__ void compact_br_narrow(const T* __restrict__ x,
       acc += diff * diff;
     }
   }
-  finish_e2(acc, partials, ticket, e2);
+  grid_sum(acc, partials, ticket, e2);
 }
 
 bool aligned(const void* p, uintptr_t bytes) {

@@ -70,10 +70,11 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 
 // dtype codes shared with repro_torch/kernels/flexa_prox.py
 enum DType { kF32 = 0, kBF16 = 1 };
@@ -99,32 +100,6 @@ template <> struct Out<__nv_bfloat16> {
   }
 };
 
-// soft(w, t) = sign(w) * max(|w| - t, 0), as torch.sign * clamp_min.
-__device__ __forceinline__ float soft(float w, float t) {
-  const float a = fabsf(w) - t;
-  const float m = a > 0.f ? a : 0.f;
-  const float s = w > 0.f ? 1.f : (w < 0.f ? -1.f : 0.f);
-  return s * m;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Sum of v over the block, fixed order; the result is valid in thread 0.
-__device__ __forceinline__ float block_sum(float v, float* sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) sh[warp] = v;
-  __syncthreads();
-  v = threadIdx.x < kWarps ? sh[threadIdx.x] : 0.f;
-  if (warp == 0) v = warp_sum(v);
-  return v;
-}
-
 template <typename T, bool kDenseD, bool kVec>
 __global__ void __launch_bounds__(kThreads) flexa_best_response_kernel(
     const T* __restrict__ x, const T* __restrict__ g,
@@ -132,9 +107,6 @@ __global__ void __launch_bounds__(kThreads) flexa_best_response_kernel(
     float* __restrict__ partials, unsigned* __restrict__ ticket,
     float* __restrict__ e2, long long n) {
   constexpr int V = 16 / sizeof(T);     // elements per 16-byte load of x
-  __shared__ float sh[kWarps];
-  __shared__ bool last;
-
   const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long stride = (long long)gridDim.x * kThreads;
   float d0 = 0.f, t0 = 0.f;
@@ -174,7 +146,7 @@ __global__ void __launch_bounds__(kThreads) flexa_best_response_kernel(
         const float gf = Cvt<T>::to(ge[q]);
         const float dq = kDenseD ? dv[q] : d0;
         const float tq = kDenseD ? c / dq : t0;
-        zv[q] = soft(xf - gf / dq, tq);
+        zv[q] = response(xf, gf, dq, tq);
         const float diff = zv[q] - xf;
         acc[q] += diff * diff;
       }
@@ -192,7 +164,7 @@ __global__ void __launch_bounds__(kThreads) flexa_best_response_kernel(
     const float gf = Cvt<T>::to(g[i]);
     const float dq = kDenseD ? d[i] : d0;
     const float tq = kDenseD ? c / dq : t0;
-    const float zi = soft(xf - gf / dq, tq);
+    const float zi = response(xf, gf, dq, tq);
     z[i] = zi;
     const float diff = zi - xf;
     acc[0] += diff * diff;
@@ -201,23 +173,7 @@ __global__ void __launch_bounds__(kThreads) flexa_best_response_kernel(
 #pragma unroll
   for (int q = 0; q < V; ++q) s += acc[q];
 
-  s = block_sum(s, sh);
-  if (threadIdx.x == 0) {
-    partials[blockIdx.x] = s;
-    __threadfence();                      // partial visible before ticket
-    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  // The last block: every partial is written; sum them in index order
-  // (thread j takes j, j + 256, ... in turn, then the fixed tree).
-  __threadfence();
-  float p = 0.f;
-  for (unsigned j = threadIdx.x; j < gridDim.x; j += kThreads)
-    p += __ldcg(partials + j);
-  __syncthreads();                        // sh is reused
-  p = block_sum(p, sh);
-  if (threadIdx.x == 0) *e2 = p;
+  grid_sum(s, partials, ticket, e2);
 }
 
 bool aligned16(const void* p) {
@@ -269,11 +225,6 @@ enum DMode { kDScalar = 0, kDInstance = 1, kDDense = 2 };
 template <bool kRecip>
 __device__ __forceinline__ float threshold(float c, float d) {
   return kRecip ? __fmul_rn(__fdiv_rn(1.f, d), c) : __fdiv_rn(c, d);
-}
-
-__device__ __forceinline__ float response(float xf, float gf, float d,
-                                          float t) {
-  return soft(__fsub_rn(xf, __fdiv_rn(gf, d)), t);
 }
 
 // x + gm * (z - x), rounded as torch rounds x + gm * (z - x): three ops.
@@ -392,31 +343,13 @@ __global__ void __launch_bounds__(kThreads) flexa_batched_best_response_kernel(
     const float* __restrict__ d, const float* __restrict__ c, int c_stride,
     float c_host, float* __restrict__ z, float* __restrict__ partials,
     unsigned* __restrict__ tickets, float* __restrict__ e2, long long n) {
-  __shared__ float sh[kWarps];
-  __shared__ bool last;
   const int b = blockIdx.y;
   const long long off = (long long)b * n;
   float s = stream<T, kD, kVec, true, false>(
       x + off, g + off, kD == kDDense ? d + off : d, instance_d<kD>(d, b),
       instance_v(c, c_stride, c_host, b), 0.f, z + off, nullptr, n);
 
-  float* part = partials + (long long)b * gridDim.x;
-  s = block_sum(s, sh);
-  if (threadIdx.x == 0) {
-    part[blockIdx.x] = s;
-    __threadfence();                      // partial visible before ticket
-    last = atomicAdd(tickets + b, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  // The instance's last block: sum its partials in index order.
-  __threadfence();
-  float p = 0.f;
-  for (unsigned j = threadIdx.x; j < gridDim.x; j += kThreads)
-    p += __ldcg(part + j);
-  __syncthreads();                        // sh is reused
-  p = block_sum(p, sh);
-  if (threadIdx.x == 0) e2[b] = p;
+  grid_sum(s, partials + (long long)b * gridDim.x, tickets + b, e2 + b);
 }
 
 template <typename T, int kD, bool kVec>

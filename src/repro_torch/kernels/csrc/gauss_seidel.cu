@@ -48,37 +48,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRows = 57344;        // r in 224 KB of shared memory
 constexpr int kLine = 128;             // bytes per L2 prefetch
-
-// soft(w, t) = sign(w) * max(|w| - t, 0), as torch.sign * clamp_min.
-__device__ __forceinline__ float soft(float w, float t) {
-  const float a = __fsub_rn(fabsf(w), t);
-  const float m = a > 0.f ? a : 0.f;
-  const float s = w > 0.f ? 1.f : (w < 0.f ? -1.f : 0.f);
-  return s * m;
-}
-
-// Sum of v over the block, fixed order; the result is valid in thread 0.
-__device__ __forceinline__ float block_sum(float v, float* sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  if (lane == 0) sh[warp] = v;
-  __syncthreads();
-  v = threadIdx.x < kWarps ? sh[threadIdx.x] : 0.f;
-  if (warp == 0) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
 
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads) gauss_seidel_sweep_kernel(
@@ -123,8 +100,7 @@ __global__ void __launch_bounds__(kThreads) gauss_seidel_sweep_kernel(
     p = block_sum(p, red);
     if (tid == 0) {
       const float d = 2.f * cs;
-      const float z = soft(__fsub_rn(xi, __fdiv_rn(2.f * p, d)),
-                           __fdiv_rn(c, d));
+      const float z = response(xi, 2.f * p, d, __fdiv_rn(c, d));
       const float delta = __fsub_rn(z, xi);
       x[i] = z;
       const float ad = fabsf(delta);
