@@ -8,13 +8,15 @@ binds it.  The sources share device helpers through ``csrc/*.cuh``.  A
 library's file name carries a hash of its source, those headers and the
 flags, so an edited source or header is rebuilt.  :func:`build_all` starts one
 ``nvcc`` per source, all at once.  Nothing is built at import, and a
-failed build raises.
+failed build raises.  :func:`sass_counts` reads a built library's
+machine code (``cuobjdump -sass``) for the instructions it holds.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -90,3 +92,24 @@ def build_all(names=None, verbose: bool = False) -> dict[str, Path]:
 def load(name: str) -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu`` (built if missing)."""
     return ctypes.CDLL(str(build_all([name])[name]))
+
+
+def sass_counts(name: str, opcodes=("HMMA", "HGMMA")) -> dict:
+    """Per device function of ``csrc/<name>.cu``'s library (by mangled
+    name), how many instructions of each of ``opcodes`` its SASS holds,
+    read with ``cuobjdump -sass`` from nvcc's toolkit (HMMA: ``mma.sync``
+    on the tensor cores; HGMMA: ``wgmma``)."""
+    lib = build_all([name])[name]
+    tool = Path(find_nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    counts, cur = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            cur = line.split("Function :", 1)[1].strip()
+            counts[cur] = dict.fromkeys(opcodes, 0)
+        elif cur is not None:
+            m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", line)
+            if m and m.group(1) in counts[cur]:
+                counts[cur][m.group(1)] += 1
+    return counts

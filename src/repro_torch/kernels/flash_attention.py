@@ -4,9 +4,11 @@ It replaces the Pallas TPU kernel ``flash_attention`` of
 ``src/repro/kernels/flash_attention.py:86`` (``pallas_call`` :103): q
 (B, Hq, Sq, D) against k, v (B, Hkv, Skv, D), query head h reading kv
 head h // (Hq / Hkv), queries aligned to the end of the keys, an online
-softmax with an fp32 (m, ℓ, acc) carry, the output in q's dtype.  The
-source (``csrc/flash_attention.cu``) says what bounds it and how it is
-laid out.  The plain version is
+softmax with an fp32 (m, ℓ, acc) carry, the output in q's dtype.  bf16
+inputs run both products on the tensor cores (P·V as three exact bf16
+terms of the fp32 p); fp32 inputs on the CUDA cores.  The source
+(``csrc/flash_attention.cu``) says what bounds it and how it is laid
+out.  The plain version is
 :func:`repro_torch.kernels.ref.flash_attention_ref`, also reachable as
 ``flash_attention.plain``.  The TPU's ``block_q`` / ``block_k`` are not
 part of this interface: the kernel chooses its own tiles.
@@ -45,8 +47,25 @@ def library() -> ctypes.CDLL:
         lib.flash_attention_launch.restype = ci
         lib.flash_attention_smem_bytes.argtypes = [ci]
         lib.flash_attention_smem_bytes.restype = ctypes.c_size_t
+        lib.flash_attention_kernel_info.argtypes = [ci, ci, vp]
+        lib.flash_attention_kernel_info.restype = ci
         _lib = lib
     return _lib
+
+
+def kernel_info(dtype: torch.dtype, D: int) -> dict:
+    """What the compiler made of the kernel that takes ``dtype`` at head
+    dim ``D`` (on the current CUDA device): registers and local (spill)
+    bytes per thread, static and dynamic shared memory, resident blocks
+    per SM, threads per block."""
+    out = (ctypes.c_longlong * 6)()
+    rc = library().flash_attention_kernel_info(DTYPE_CODES[dtype], D, out)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_kernel_info failed: CUDA error "
+                           f"{rc}")
+    keys = ("registers", "local_bytes", "static_smem", "dynamic_smem",
+            "blocks_per_sm", "threads")
+    return dict(zip(keys, out))
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

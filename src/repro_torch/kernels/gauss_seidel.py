@@ -4,8 +4,9 @@
 each Gauss-Seidel sweep as one device program (a ``lax.fori_loop`` over
 the n coordinates, ``src/repro/baselines/gauss_seidel.py:37-50``), and
 this kernel is the port's form of that program: one launch per sweep,
-where eager torch would make a few launches per coordinate.  One block
-walks the coordinates in order with the residual in shared memory; the
+where eager torch would make a few launches per coordinate.  A cluster
+of thread blocks walks the coordinates 32 at a time, Gram-corrected,
+each thread block holding a slice of the residual in shared memory; the
 source says why.
 
 The plain version is :func:`repro_torch.kernels.ref.gauss_seidel_sweep_ref`
@@ -24,8 +25,8 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-#: Largest m (rows of A) the kernel takes: r lives in 224 KB of shared
-#: memory (kMaxRows in the source).
+#: Largest m (rows of A) the kernel takes (kMaxRows in the source, the
+#: first kernel's limit): r is split across the cluster's shared memory.
 MAX_ROWS = 57344
 
 #: Substrings of the device-kernel names as ``torch.profiler`` records them.
@@ -44,8 +45,27 @@ def library() -> ctypes.CDLL:
             vp, vp, vp, vp, ctypes.c_float, vp, ctypes.c_longlong,
             ctypes.c_int, vp]
         lib.gauss_seidel_sweep_launch.restype = ctypes.c_int
+        lib.gauss_seidel_kernel_info.argtypes = [ctypes.c_int, vp]
+        lib.gauss_seidel_kernel_info.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def kernel_info(m: int) -> dict:
+    """What the compiler and the card (the current CUDA device) made of the
+    sweep at m rows: registers and local (spill) bytes per thread, static
+    and dynamic shared memory per CTA, CTAs per cluster, clusters the card
+    can hold at once, threads per CTA, rows of r per CTA, rows per staged
+    tile and tiles in the ring."""
+    out = (ctypes.c_longlong * 10)()
+    rc = library().gauss_seidel_kernel_info(m, out)
+    if rc != 0:
+        raise RuntimeError(f"gauss_seidel_kernel_info failed: CUDA error "
+                           f"{rc}")
+    keys = ("registers", "local_bytes", "static_smem", "dynamic_smem",
+            "cluster_ctas", "max_active_clusters", "threads", "slice_rows",
+            "chunk_rows", "ring_slots")
+    return dict(zip(keys, out))
 
 
 def gauss_seidel_sweep(At: torch.Tensor, colsq: torch.Tensor,

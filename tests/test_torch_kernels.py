@@ -504,3 +504,130 @@ def test_gauss_seidel_cpu_dispatch_never_touches_the_kernel():
                                0.1, [2, -1])
     assert flexa_prox.compact_best_response.launches == before
     assert flexa_prox._lib is None
+
+
+# ------------------------------------------------------------------ #
+# The arithmetic of the Hopper designs (csrc/flash_attention.cu's     #
+# bf16 body, csrc/gauss_seidel.cu), modelled in torch on the CPU      #
+# ------------------------------------------------------------------ #
+from hypothesis import given, settings, strategies as st  # noqa: E402
+
+#: p at and above this split exactly into three bf16 terms; below it the
+#: third term can underflow bf16's subnormals (step 2^-133).
+SPLIT_EXACT_FROM = 2.0 ** -110
+
+
+def _split3(p: torch.Tensor):
+    """The bf16 body's split of fp32 p (``split3``): p1 = bf16(p),
+    p2 = bf16(p − p1), p3 = bf16(p − p1 − p2), each remainder an fp32
+    subtraction."""
+    bf = torch.bfloat16
+    p1 = p.to(bf)
+    r1 = p - p1.float()
+    p2 = r1.to(bf)
+    return p1, p2, (r1 - p2.float()).to(bf)
+
+
+def _assert_split_exact(p):
+    """p1 + p2 + p3, summed in fp32, equals p bit for bit where p ≥
+    2^-110, and is within 2^-133 of it below."""
+    p = torch.as_tensor(p, dtype=torch.float32).reshape(-1)
+    p1, p2, p3 = _split3(p)
+    total = (p1.float() + p2.float()) + p3.float()
+    big = p >= SPLIT_EXACT_FROM
+    assert torch.equal(total[big].view(torch.int32),
+                       p[big].view(torch.int32))
+    assert bool(((total - p).abs()[~big] <= 2.0 ** -133).all())
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.lists(st.floats(0.0, 1.0, width=32), min_size=1, max_size=256))
+def test_bf16_split_of_p_in_unit_interval_is_exact(ps):
+    _assert_split_exact(ps)
+
+
+@settings(max_examples=40, deadline=None)
+@given(st.lists(st.floats(float(np.float32(0.99)), 1.0, width=32), min_size=1, max_size=256))
+def test_bf16_split_of_p_near_one_is_exact(ps):
+    _assert_split_exact(ps)
+
+
+@settings(max_examples=40, deadline=None)
+@given(st.lists(st.floats(0.0, 80.0, width=32), min_size=1, max_size=256))
+def test_bf16_split_of_softmax_exponentials_is_exact(xs):
+    """p = exp(−x), x up to 80, as the online softmax forms it (fp32)."""
+    _assert_split_exact(torch.exp(-torch.tensor(xs, dtype=torch.float32)))
+
+
+@settings(max_examples=30, deadline=None)
+@given(st.lists(st.integers(-149, 0), min_size=1, max_size=64))
+def test_bf16_split_of_powers_of_two_is_exact(ks):
+    _assert_split_exact(torch.ldexp(torch.ones(len(ks)),
+                                    torch.tensor(ks, dtype=torch.int32)))
+
+
+def test_bf16_split_covers_a_dense_grid_of_exponentials():
+    """Every exp(−x) on a grid of 200001 points in [0, 80], and 2^20
+    consecutive fp32 values just below 1 (every significand pattern of
+    the top 20 bits' neighbourhood)."""
+    x = torch.linspace(0.0, 80.0, 200001, dtype=torch.float32)
+    _assert_split_exact(torch.exp(-x))
+    below_one = torch.arange(0x3F800000 - (1 << 20), 0x3F800000,
+                             dtype=torch.int32).view(torch.float32)
+    _assert_split_exact(below_one)
+
+
+def _blocked_sweep(At, colsq, x, r, c, B):
+    """float64 model of ``csrc/gauss_seidel.cu``'s sweep: per block of B
+    coordinates, q = A_Jᵀ r and G = A_Jᵀ A_J against r as the previous
+    block left it; walking j in order, g_j = 2 (q_j + Σ_{k<j} G_jk δ_k)
+    and z_j, δ_j as the per-coordinate sweep forms them; then r += a_j δ_j
+    for j in order, skipped where δ_j = 0.  x and r in place → max |δ|."""
+    n = At.shape[0]
+    max_delta = torch.zeros((), dtype=At.dtype)
+    for j0 in range(0, n, B):
+        blk = At[j0:j0 + B]
+        cc = blk @ r
+        G = blk @ blk.T
+        deltas = []
+        for j in range(blk.shape[0]):
+            xi, d = x[j0 + j].clone(), 2.0 * colsq[j0 + j]
+            w = xi - (2.0 * cc[j]) / d
+            z = torch.sign(w) * torch.clamp_min(torch.abs(w) - c / d, 0.0)
+            delta = z - xi
+            x[j0 + j] = z
+            if delta != 0:
+                cc[j + 1:] += G[j + 1:, j] * delta
+            max_delta = torch.maximum(max_delta, torch.abs(delta))
+            deltas.append(delta)
+        for j, delta in enumerate(deltas):
+            if delta != 0:
+                r.add_(blk[j] * delta)
+    return max_delta
+
+
+@pytest.mark.parametrize("B", [1, 7, 32])
+@pytest.mark.parametrize("m,n", [(40, 100), (30, 20)], ids=str)
+def test_blocked_gram_sweep_matches_the_per_coordinate_sweep(B, m, n):
+    """The blocked, Gram-corrected sweep is the per-coordinate sweep
+    (``ref.gauss_seidel_sweep_ref``) in float64, to 1e-12: block sizes 1,
+    7 and 32 over n not a multiple of B (and n < B), from a nonzero x,
+    four sweeps."""
+    rng = np.random.default_rng(m * n + B)
+    A = torch.from_numpy(rng.standard_normal((m, n)))
+    b = torch.from_numpy(rng.standard_normal(m))
+    At = A.T.contiguous()
+    colsq = torch.clamp_min((A * A).sum(0), 1e-12)
+    x0 = torch.from_numpy(rng.standard_normal(n) * (rng.random(n) < 0.3))
+    c = 0.5
+    xs, rs = [x0.clone(), x0.clone()], [A @ x0 - b, A @ x0 - b]
+    for _ in range(4):
+        want = tref.gauss_seidel_sweep_ref(At, colsq, xs[0], rs[0], c)
+        got = _blocked_sweep(At, colsq, xs[1], rs[1], c, B)
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-12,
+                                   atol=1e-12)
+        np.testing.assert_allclose(xs[1].numpy(), xs[0].numpy(),
+                                   rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(rs[1].numpy(), rs[0].numpy(),
+                                   rtol=1e-12, atol=1e-12)
+    assert float(got) > 0 and bool((xs[1] != 0).any())

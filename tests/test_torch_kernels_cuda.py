@@ -14,7 +14,8 @@ that fp32 bound (both round an fp32 sum that differs in the last bits).
 Two launches on the same inputs give the same bits.
 ``flash_attention`` sums in another order than its plain version: fp32
 within 2e-5 (the reference's ``tests/test_kernels.py`` tolerance), bf16
-within 2 bf16 ulps of each element plus that.  ``best_response``'s
+within 2 bf16 ulps of each element plus that.  Its bf16 body runs both
+products on the tensor cores (HMMA in its SASS), the fp32 body none.  ``best_response``'s
 z is elementwise IEEE fp32 arithmetic in the plain version's order, so
 it equals the plain z bit for bit; its e2 sums in another order: within
 1e-5 relative.  The same holds for ``batched_best_response``, and
@@ -24,8 +25,9 @@ it); a FLEXA iteration that calls them can be captured in a CUDA graph.
 ``compact_best_response`` gathers and computes as ``best_response``
 does: z bit for bit, pad rows exactly 0, e2 within 1e-5 relative.
 ``gauss_seidel_sweep`` sums its dot products in another order than its
-plain version: after 3 sweeps x within 1e-5 and max |δ| within 1e-5
-relative; two runs from one start give the same bits.
+plain version (and corrects them with a Gram block of 32 coordinates):
+after 3 sweeps x within 1e-5 and max |δ| within 1e-5 relative; two runs
+from one start give the same bits.
 """
 import numpy as np
 import pytest
@@ -463,6 +465,54 @@ def test_flash_attention_kernel_matches_plain_version(cuda, case, dtype):
     assert torch.equal(got, again)
 
 
+#: The tensor-core body's edges: D 64, 80 (stablelm-3b), 128 (yi-6b), and
+#: 40 and 72 (multiples of 8, not of 16: zero-padded to the mma depth),
+#: with Sq and Skv not multiples of the 64-row tile; GQA; non-causal.
+FA_HOPPER_CASES = [
+    (1, 2, 2, 100, 100, 64, True),
+    (2, 3, 3, 130, 200, 80, True),
+    (2, 4, 2, 77, 301, 128, True),
+    (1, 2, 1, 90, 150, 40, False),
+    (1, 4, 2, 200, 263, 72, True),
+    (1, 4, 4, 1, 67, 80, True),
+    (1, 2, 2, 129, 129, 128, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FA_HOPPER_CASES, ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_tensor_core_body_matches_plain_version(cuda, case,
+                                                                dtype):
+    """bf16 on the tensor cores (p split into three exact bf16 terms) and
+    fp32 on the CUDA cores: within the plain version's tolerance, and a
+    second launch bit for bit."""
+    B, Hq, Hkv, Sq, Skv, D, causal = case
+    q, k, v = fa_inputs(B, Hq, Hkv, Sq, Skv, D, getattr(torch, dtype),
+                        seed=3 * Sq + Skv + D, device=cuda)
+    got = tops.flash_attention(q, k, v, causal=causal)
+    assert_fa_close(got, tfa.flash_attention.plain(q, k, v, causal=causal))
+    assert torch.equal(got, tops.flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_body_runs_on_tensor_cores(cuda):
+    """The SASS of every bf16 instantiation holds HMMA (mma.sync) and no
+    fp32 instantiation holds any tensor-core instruction; each kernel's
+    registers, spills and occupancy are readable."""
+    counts = build.sass_counts("flash_attention")
+    mma = {k: v for k, v in counts.items() if "flash_attention_fwd_mma" in k}
+    fp32 = {k: v for k, v in counts.items()
+            if "flash_attention_fwd" in k and k not in mma}
+    assert len(mma) == 8 and len(fp32) == 8, sorted(counts)
+    assert all(v["HMMA"] > 0 for v in mma.values()), mma
+    assert all(sum(v.values()) == 0 for v in fp32.values()), fp32
+    for dtype, D in ((torch.bfloat16, 80), (torch.bfloat16, 128),
+                     (torch.float32, 80)):
+        info = tfa.kernel_info(dtype, D)
+        assert info["registers"] > 0 and info["blocks_per_sm"] >= 1, info
+
+
 @pytest.mark.cuda
 def test_flash_attention_kernel_reads_strided_views(cuda):
     """q, k, v as the model passes them: heads split out of (B, S, H·D)
@@ -820,6 +870,74 @@ def test_gauss_seidel_sweep_kernel_matches_plain_version(cuda, m, n):
     assert float((xk - xp).abs().max()) <= 1e-5
     assert bool(((sk - sp).abs() <= 1e-5 * sp.abs()).all())
     assert bool((sk > 0).all()) and bool(torch.isfinite(rk).all())
+
+
+def gs_random(m, n, seed, device, c=1.0):
+    """At (n, m), colsq, x = 0 and r = −b of a dense N(0, 1) instance
+    scaled by 1/√m, and the ℓ1 weight c."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    A = torch.randn((m, n), generator=g) / m ** 0.5
+    b = torch.randn(m, generator=g)
+    colsq = torch.clamp_min((A * A).sum(0), 1e-12)
+    return (A.T.contiguous().to(device), colsq.to(device),
+            torch.zeros(n, device=device), (-b).to(device), c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(5000, 100), (501, 20), (333, 96),
+                                 (10340, 70), (57344, 40)], ids=str)
+def test_gauss_seidel_blocked_sweep_edges_match_plain_version(cuda, m, n):
+    """The blocked sweep's edges: n not a multiple of the 32-coordinate
+    block (100, 70) and n < 32 (20); m not a multiple of the cluster's
+    slice of r (5000, 501, 333), not of 4 (501, 333: 4-byte copies), a
+    slice staged in two chunks (10340) and the largest m (57344).  Three
+    sweeps: x and each sweep's max |δ| within 1e-5 × max(1, max |x|) (δ
+    is a difference of x's values and carries their rounding: by the
+    third sweep it is ~1e-4 of x), r within 1e-4 × max(1, max |r|); a
+    second run bit for bit."""
+    At, colsq, x, r, c = gs_random(m, n, seed=m + n, device=cuda)
+    runs = []
+    for sweep in (tops.gauss_seidel_sweep, tops.gauss_seidel_sweep,
+                  tgs.gauss_seidel_sweep.plain):
+        xs, rs = x.clone(), r.clone()
+        stats = torch.stack([sweep(At, colsq, xs, rs, c) for _ in range(3)])
+        runs.append((xs, rs, stats))
+    torch.cuda.synchronize()
+    (xk, rk, sk), (xk2, rk2, sk2), (xp, rp, sp) = runs
+    assert torch.equal(xk, xk2) and torch.equal(rk, rk2) \
+        and torch.equal(sk, sk2)
+    x_scale = max(1.0, float(xp.abs().max()))
+    readings = (f"max |dx| {float((xk - xp).abs().max())}, max |dr| "
+                f"{float((rk - rp).abs().max())}, max |δ| {sk.tolist()} vs "
+                f"{sp.tolist()}, max |x| {x_scale}")
+    assert float((xk - xp).abs().max()) <= 1e-5 * x_scale, readings
+    assert float((rk - rp).abs().max()) <= 1e-4 * max(
+        1.0, float(rp.abs().max())), readings
+    assert float((sk - sp).abs().max()) <= 1e-5 * x_scale, readings
+    assert bool((sk > 0).all()) and bool((xk != 0).any())
+
+
+@pytest.mark.cuda
+def test_gauss_seidel_sweep_with_every_delta_zero_leaves_r_alone(cuda):
+    """c above every |2 a_iᵀ r| at x = 0: every δ is 0, so x stays 0, r
+    keeps its bits and max |δ| is 0."""
+    At, colsq, x, r, _ = gs_random(700, 90, seed=4, device=cuda)
+    c = 2.0 * float((At @ r).abs().max()) + 1.0
+    r0 = r.clone()
+    stat = tops.gauss_seidel_sweep(At, colsq, x, r, c)
+    torch.cuda.synchronize()
+    assert float(stat) == 0.0
+    assert torch.equal(r, r0) and not bool((x != 0).any())
+
+
+@pytest.mark.cuda
+def test_gauss_seidel_kernel_info_names_its_cluster(cuda):
+    """The sweep runs as one cluster of 8 or 16 CTAs, each holding its
+    slice of r (at fig1d's m = 5000: one staged chunk)."""
+    info = tgs.kernel_info(5000)
+    assert info["cluster_ctas"] in (8, 16) and info["max_active_clusters"] >= 1
+    assert info["slice_rows"] * info["cluster_ctas"] >= 5000
+    assert info["chunk_rows"] == info["slice_rows"], info
 
 
 @pytest.mark.cuda
