@@ -11,13 +11,15 @@ each failing the run when its check fails:
 1. setup    — the card's name and power limit, torch/CUDA versions, and
                the build of every CUDA source in ``csrc/`` (one nvcc per
                source, all started together; seconds).
-1b. hopper_kernels — the two kernels redesigned for Hopper as built:
+1b. hopper_kernels — the kernels redesigned for Hopper as built:
                registers, local (spill) bytes, static and dynamic shared
                memory and blocks per SM of ``flash_attention`` (bf16 at D
-               80 and 128, fp32), clusters of ``gauss_seidel_sweep`` at
-               fig1d's m; and ``cuobjdump -sass`` of the flash-attention
-               library: HMMA in every bf16 instantiation, no tensor-core
-               instruction in any fp32 one.
+               80 and 128, fp32), of each of ``ssd_scan``'s three passes
+               (bf16 and fp32 at mamba2-1.3b's width), clusters of
+               ``gauss_seidel_sweep`` at fig1d's m; and ``cuobjdump
+               -sass`` of the flash-attention and ssd-scan libraries: HMMA
+               in every bf16 instantiation, no tensor-core instruction in
+               any fp32 (or fp16) one.
 2. kernels  — every kernel against its plain torch version on the card:
                ``gather_rows`` / ``scatter_rows`` exactly (pure data
                movement) over a sweep that includes the fig1d shapes, the
@@ -207,9 +209,12 @@ SOURCES = {"gather_rows": "src/repro_torch/kernels/csrc/compact_rows.cu",
            "gauss_seidel_sweep":
                "src/repro_torch/kernels/csrc/gauss_seidel.cu"}
 #: Device-kernel names (substrings of the profiler's records) per wrapper;
-#: ``main`` adds those of ``flexa_prox``'s wrappers (its KERNEL_NAMES).
-KERNEL_NAMES = {"ssd_scan": ("ssd_scan_chunked",),
-                "flash_attention": ("flash_attention_fwd",)}
+#: ``main`` adds those of ``flexa_prox``'s, ``gauss_seidel``'s and
+#: ``ssd_scan``'s wrappers (their KERNEL_NAMES).
+KERNEL_NAMES = {"flash_attention": ("flash_attention_fwd",)}
+#: Wrappers that launch several device kernels per call: the kernel whose
+#: records count the wrapper's launches (the others' time is summed too).
+CALL_MARKS = {"ssd_scan": "ssd_chunk_out"}
 SERVE = dict(arch="mamba2-1.3b", batch=4, prompt=4096, new=32, seed=0)
 SERVE_DENSE = dict(arch="stablelm-3b", batch=4, prompt=4096, new=32, seed=0)
 SERVE_GQA = dict(arch="yi-6b", batch=2, prompt=2048, new=8, seed=0)
@@ -324,7 +329,8 @@ def bytes_ms(nbytes):
 # ---------------------------------------------------------------- phases
 def device_kernels(torch, prof, names=KERNEL_NAMES):
     """From a ``torch.profiler`` run: per wrapper, [device launches, summed
-    device ms] of its kernels, and [records, summed ms] of all device
+    device ms] of its kernels (a wrapper in ``CALL_MARKS`` counts the
+    records of its marking kernel), and [records, summed ms] of all device
     work (kernels, copies, sets) the profile saw."""
     out = {k: [0, 0.0] for k in names}
     busy = [0, 0.0]
@@ -336,7 +342,8 @@ def device_kernels(torch, prof, names=KERNEL_NAMES):
         busy[1] += ms
         for k, subs in names.items():
             if any(sub in e.name() for sub in subs):
-                out[k][0] += 1
+                mark = CALL_MARKS.get(k)
+                out[k][0] += mark is None or mark in e.name()
                 out[k][1] += ms
     check(busy[0] > 0, "the profiler recorded no device work")
     return out, busy
@@ -425,19 +432,27 @@ def phase_setup(torch, build, fp, ssd, fa, gs):
     return card
 
 
-def phase_hopper(torch, build, fa, gs):
-    """The two kernels redesigned for Hopper as the compiler and the card
+def phase_hopper(torch, build, fa, gs, ssd):
+    """The kernels redesigned for Hopper as the compiler and the card
     made them: registers, local (spill) bytes, static and dynamic shared
     memory, blocks per SM (``flash_attention`` at the prefill's D 80 and
-    128 in bf16, and its fp32 body) and clusters the card can hold
-    (``gauss_seidel_sweep`` at fig1d's m); and the tensor-core
-    instructions in ``flash_attention``'s SASS: every bf16 instantiation
-    (one per D / 16) must hold HMMA or HGMMA, no fp32 one any."""
+    128 in bf16, and its fp32 body; each of ``ssd_scan``'s passes in bf16
+    and fp32 at mamba2-1.3b's N 128, P 64, chunk 256) and clusters the
+    card can hold (``gauss_seidel_sweep`` at fig1d's m); and the
+    tensor-core instructions in the SASS of ``flash_attention`` and
+    ``ssd_scan``: every bf16 instantiation (one per D / 16; the chunk
+    states and chunk outputs) must hold HMMA or HGMMA, no fp32 (or fp16)
+    one any."""
     import re
     info = {f"flash_attention {str(dt).split('.')[-1]} D={D}":
             fa.kernel_info(dt, D)
             for dt, D in ((torch.bfloat16, 80), (torch.bfloat16, 128),
                           (torch.float32, 80), (torch.float32, 128))}
+    N, P, chunk = SSD_FULL[0][4], SSD_FULL[0][3], SSD_FULL[0][5]
+    for dt in (torch.bfloat16, torch.float32):
+        for pass_ in ssd.PASSES:
+            info[f"ssd_scan {str(dt).split('.')[-1]} {pass_}"] = \
+                ssd.kernel_info(dt, pass_, N, P, chunk)
     info[f"gauss_seidel_sweep m={FIG1D['m']}"] = gs.kernel_info(FIG1D["m"])
     sass = {"bf16": {}, "fp32": {}}
     for name, ops in build.sass_counts("flash_attention").items():
@@ -447,11 +462,28 @@ def phase_hopper(torch, build, fa, gs):
         key = f"D<={16 * int(nc.group(1))}" if nc else name
         sass["bf16" if "flash_attention_fwd_mma" in name else "fp32"][key] = \
             ops["HMMA"] + ops["HGMMA"]
-    say("hopper_kernels", info=info, tensor_core_sass=sass)
+    ssd_sass = {"bf16": {}, "fp32": {}}
+    for name, ops in build.sass_counts("ssd_scan").items():
+        kern = re.search(r"(ssd_chunk_\w+?|ssd_state_pass)(I|E)", name)
+        if kern is None:
+            continue
+        kind = "bf16" if kern.group(1).endswith("_mma") else "fp32"
+        elem = re.search(r"I(f|6__half)EEv", name)
+        key = kern.group(1) + ({"f": "<float>", "6__half": "<half>"}[
+            elem.group(1)] if elem else "")
+        ssd_sass[kind][key] = ops["HMMA"] + ops["HGMMA"]
+    say("hopper_kernels", info=info, tensor_core_sass=sass,
+        ssd_scan_tensor_core_sass=ssd_sass)
     check(len(sass["bf16"]) == 8 and all(v > 0 for v in sass["bf16"].values()),
           f"flash_attention's bf16 body lacks tensor-core SASS: {sass}")
     check(len(sass["fp32"]) == 8 and not any(sass["fp32"].values()),
           f"flash_attention's fp32 body holds tensor-core SASS: {sass}")
+    check(len(ssd_sass["bf16"]) == 2
+          and all(v > 0 for v in ssd_sass["bf16"].values()),
+          f"ssd_scan's bf16 passes lack tensor-core SASS: {ssd_sass}")
+    check(len(ssd_sass["fp32"]) == 5 and not any(ssd_sass["fp32"].values()),
+          f"ssd_scan's fp32, fp16 or state passes hold tensor-core SASS: "
+          f"{ssd_sass}")
     return info
 
 
@@ -1542,7 +1574,7 @@ def serve_run(torch, spec, wrapper, kname, dev, profile=True):
     ``KERNEL_NAMES``.  With ``profile``, the prefill alone and the prefill
     with 8 decode steps run under ``torch.profiler`` first, and the
     kernel's profiler launches must equal its counter's and the layer
-    count.  Then the main run, its counter set to 0 just before and read
+    count; the device time of each of its device kernels is printed.  Then the main run, its counter set to 0 just before and read
     just after (one launch per layer), and the first 4 tokens against full
     ``forward``s teacher-forced on the engine's tokens: the gaps to the max
     logit printed in the activation dtype and, with the same weights in
@@ -1578,6 +1610,9 @@ def serve_run(torch, spec, wrapper, kname, dev, profile=True):
         prof_launches = wrapper.launches
         per_kernel, busy = device_kernels(torch, prof, {
             kname: KERNEL_NAMES[kname]})
+        # each of the wrapper's device kernels: [records, summed ms]
+        by_kernel, _ = device_kernels(torch, prof, {
+            sub: (sub,) for sub in KERNEL_NAMES[kname]})
         del prof
         check(per_kernel[kname][0] == cfg.num_layers == prof_launches,
               f"{kname} launches in the prefill: profiler "
@@ -1596,6 +1631,9 @@ def serve_run(torch, spec, wrapper, kname, dev, profile=True):
             "profiled_prefill_ms": round(prof_prefill_s * 1e3, 3),
             f"{kname}_profiler_launches": per_kernel[kname][0],
             f"{kname}_device_ms": round(kernel_ms, 3),
+            f"{kname}_device_ms_by_kernel": {
+                k: [n_rec, round(ms, 3)] for k, (n_rec, ms) in
+                by_kernel.items()},
             f"{kname}_share_of_prefill": kernel_ms / (prof_prefill_s * 1e3),
             "prefill_device_busy_ms": round(busy[1], 3),
             "prefill_device_busy_share": busy[1] / (prof_prefill_s * 1e3),
@@ -1878,19 +1916,21 @@ def greedy_gaps(torch, T, cfg, model, prompts, tokens, dev):
 
 
 def ssd_work(shape, itemsize):
-    """(FLOPs, bytes) an ssd_scan call needs at ``shape``: G = C·Bᵀ once
-    per (batch row, chunk) over the lower triangle, then per head W·X
-    over the triangle, C·h and the state update; each input read once
-    (x, B, C in the activation dtype, dt fp32), y and h written once."""
+    """(G FLOPs, the other products' FLOPs, bytes) an ssd_scan call needs
+    at ``shape``: G = C·Bᵀ once per (batch row, chunk) over the lower
+    triangle; then per head W·X over the triangle, C·h and the state
+    update (the products with an fp32 factor); each input read once (x,
+    B, C in the activation dtype, dt fp32), y and h written once."""
     Bt, S, H, P, N, L = shape
-    fma = 0
+    g_fma = rest_fma = 0
     for c0 in range(0, S, L):
         lc = min(L, S - c0)
         tri = lc * (lc + 1) // 2
-        fma += Bt * (tri * N + H * (tri * P + 2 * lc * N * P))
+        g_fma += Bt * tri * N
+        rest_fma += Bt * H * (tri * P + 2 * lc * N * P)
     nbytes = (2 * Bt * S * H * P * itemsize + 2 * Bt * S * N * itemsize
               + Bt * S * H * 4 + H * 4 + Bt * H * N * P * 4)
-    return 2 * fma, nbytes
+    return 2 * g_fma, 2 * rest_fma, nbytes
 
 
 def br_row(torch, fp, launches, err, dev):
@@ -2258,20 +2298,33 @@ def ssd_row(torch, ssd, launches, err, dev):
     """ssd_scan at the serve path's per-layer shape (4 × 4096, bf16, x/B/C
     strided as the mixer passes them) and at a prefill_32k sequence
     (1 × 32768).  Times from CUDA events around back-to-back eager
-    launches (a launch takes milliseconds, so host overhead is noise)."""
+    launches (a launch takes milliseconds, so host overhead is noise).
+
+    The bound by operations is the least time the card needs for this
+    function: G = C·Bᵀ multiplies bf16 by bf16 into fp32 sums, which the
+    tensor cores do exactly at the bf16 rate, and W·X, C·h and the state
+    update each have one fp32 factor, three exact bf16 products at that
+    rate (the factor split into three bf16 terms): ``split_ops_ms``.  All
+    products at the fp32 CUDA-core rate (``fp32_ops_ms``, the first
+    kernel's bound) stand beside it; ``bound_ms`` is the larger of the
+    bytes' time and the lesser of the two operation bounds."""
     timed = {}
     for key, shape in (("serve", SSD_FULL[1]), ("prefill_32k", SSD_32K)):
         args = ssd_inputs(torch, shape, torch.bfloat16, seed=21, dev=dev)
-        flops, nbytes = ssd_work(shape, 2)
-        t_bytes, t_ops = bytes_ms(nbytes), flops / FP32_OPS_PER_S * 1e3
+        g_flops, rest_flops, nbytes = ssd_work(shape, 2)
+        flops = g_flops + rest_flops
+        t_split = (g_flops + 3 * rest_flops) / BF16_OPS_PER_S * 1e3
+        t_fp32 = flops / FP32_OPS_PER_S * 1e3
+        t_bytes, t_ops = bytes_ms(nbytes), min(t_split, t_fp32)
         timed[key] = {
             "shape": list(shape),
             "ms": cuda_ms(torch, lambda: ssd.ssd_scan(
                 *args, chunk=shape[-1]), reps=5),
             "plain_ms": cuda_ms(torch, lambda: ssd.ssd_scan.plain(
                 *args, chunk=shape[-1]), reps=3),
-            "flops": flops, "bytes": nbytes,
-            "bytes_ms": t_bytes, "fp32_ops_ms": t_ops,
+            "flops": flops, "g_flops": g_flops, "bytes": nbytes,
+            "bytes_ms": t_bytes, "split_ops_ms": t_split,
+            "fp32_ops_ms": t_fp32,
             "tf32_ops_ms": flops / TF32_OPS_PER_S * 1e3,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -2285,9 +2338,15 @@ def ssd_row(torch, ssd, launches, err, dev):
             "bound_ms": round(t["bound_ms"], 5), "bound_by": t["bound_by"],
             # no single PyTorch call computes the SSD scan
             "library_ms": None,
+            "split_ops_ms": round(t["split_ops_ms"], 5),
+            "fp32_ops_ms": round(t["fp32_ops_ms"], 5),
+            "faster_than_plain": {k: v["ms"] < v["plain_ms"]
+                                  for k, v in timed.items()},
             "shape": "x (4, 4096, 64, 64) bf16, B/C (4, 4096, 128), "
                      "chunk 256",
-            "peak": "fp32 66.9 TFLOP/s (CUDA cores); TF32 495 beside it",
+            "peak": "G and three bf16 products of each fp32-factor product "
+                    "at 989 TFLOP/s (tensor cores); fp32_ops_ms: all at "
+                    "fp32 66.9 (CUDA cores); TF32 495 beside it",
             "timed": {k: {kk: (round(vv, 5) if isinstance(vv, float)
                                else vv) for kk, vv in v.items()}
                       for k, v in timed.items()}}
@@ -2311,13 +2370,14 @@ def main() -> int:
 
     KERNEL_NAMES.update(fp.KERNEL_NAMES)
     KERNEL_NAMES.update(gs.KERNEL_NAMES)
+    KERNEL_NAMES.update(ssd.KERNEL_NAMES)
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     phase = "setup"
     try:
         card = phase_setup(torch, build, fp, ssd, fa, gs)
         phase = "hopper_kernels"
-        phase_hopper(torch, build, fa, gs)
+        phase_hopper(torch, build, fa, gs, ssd)
         phase = "kernels"
         err = phase_kernels(torch, fp, ssd, fa, gs, dev)
         phase = "goldens"

@@ -77,6 +77,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kBQ = 64;              // query rows per block
@@ -322,70 +324,12 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_fwd(Args a) {
 
 // ------------------------------------------------------------ bf16 body
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// cp.async of `bytes` (16 or 8) into shared memory; src_bytes 0 writes
+// cp.async of 8 bytes (rows not 16-byte aligned); src_bytes 0 writes
 // zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
-}
 __device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
                                           int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
                "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 sums
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The exact three-way split of two fp32 values (x in the low half, as the
-// mma fragments order columns): x == h1 + h2 + h3 in each half.
-__device__ __forceinline__ void split3(float x, float y, uint32_t& h1,
-                                       uint32_t& h2, uint32_t& h3) {
-  const __nv_bfloat162 b1 = __floats2bfloat162_rn(x, y);
-  const float2 f1 = __bfloat1622float2(b1);
-  const float rx = __fsub_rn(x, f1.x), ry = __fsub_rn(y, f1.y);
-  const __nv_bfloat162 b2 = __floats2bfloat162_rn(rx, ry);
-  const float2 f2 = __bfloat1622float2(b2);
-  h1 = bits(b1);
-  h2 = bits(b2);
-  h3 = bits(__floats2bfloat162_rn(__fsub_rn(rx, f2.x), __fsub_rn(ry, f2.y)));
 }
 
 // Rows [row0, row0 + 64) of a (rows, D) bf16 strided source into a staged

@@ -113,21 +113,10 @@ struct Params {
   int slots;   // staged tiles in the ring: 3 (one chunk, if they fit) or 2
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
-}
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                                           int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
 }
 
 // Physical row of a staged tile that holds the block's row j: rows 4t ..
@@ -372,11 +361,6 @@ __device__ __forceinline__ void update(const float* tile, int ldt, float* rc,
     rc[u] = ru;
     if (two) rc[v] = rv;
   }
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 template <bool kVec>

@@ -2,10 +2,17 @@
 
 It replaces the Pallas TPU kernel ``ssd_scan`` of
 ``src/repro/kernels/ssd_scan.py:83`` (``pallas_call`` :97): per (batch
-row, head), a sequential walk over chunks of ``chunk`` rows with the
-(N, P) fp32 state carried across them, y in x's dtype and the final
-state in fp32.  The source (``csrc/ssd_scan.cu``) says what bounds it
-and how it is laid out.  The plain version is
+row, head), chunks of ``chunk`` rows with the (N, P) fp32 state carried
+across them, y in x's dtype and the final state in fp32.  One call
+launches three kernels on the current stream: the chunks' own states
+and the cumsum of dt·A, over (chunk, head, batch row); the state passed
+across chunks, one thread per state element; the chunks' outputs, over
+(chunk, head, batch row).  bf16 inputs run every product on the tensor
+cores (the fp32 factors as three exact bf16 terms); fp32 and fp16 on
+the CUDA cores.  The wrapper allocates the scratch that carries the
+per-chunk states and the cumsum between them.  The source
+(``csrc/ssd_scan.cu``) says what bounds it and how it is laid out.  The
+plain version is
 :func:`repro_torch.kernels.ref.ssd_scan_ragged`, also reachable as
 ``ssd_scan.plain``: it pads a ragged S with dt = 0, while the kernel
 masks the ragged last chunk itself, which gives the same result.
@@ -13,8 +20,9 @@ masks the ragged last chunk itself, which gives the same result.
 Build: ``csrc/ssd_scan.cu`` into its own shared library through
 :mod:`repro_torch.kernels.build` at first use, loaded with ``ctypes``.
 A failed build or launch raises; there is no fallback.  The wrapper
-counts its launches in ``ssd_scan.launches``, incremented only where
-the kernel is launched.
+counts its launches in ``ssd_scan.launches``, one per call, incremented
+only where the kernels are launched; :data:`KERNEL_NAMES` names the
+device kernels of a call for the profiler.
 """
 from __future__ import annotations
 
@@ -28,6 +36,12 @@ from repro_torch.kernels import build, ref
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: Largest head dim and state size the kernel's register tiles hold.
 MAX_P, MAX_N = 64, 128
+#: The device kernels one call launches (substrings of their names), in
+#: order: chunk states, state pass, chunk outputs.
+KERNEL_NAMES = {"ssd_scan": ("ssd_chunk_state", "ssd_state_pass",
+                             "ssd_chunk_out")}
+#: Passes as ``kernel_info`` numbers them.
+PASSES = {"chunk_state": 0, "state_pass": 1, "chunk_out": 2}
 
 _lib = None
 
@@ -38,13 +52,33 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load("ssd_scan")
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.ssd_scan_launch.argtypes = [vp, vp, vp, vp, vp, ci, vp, vp, ll,
-                                        ll, ci, ci, ci, ci, vp, vp]
+        lib.ssd_scan_launch.argtypes = [vp, vp, vp, vp, vp, ci, vp, vp, vp,
+                                        ll, ll, ci, ci, ci, ci, vp, vp]
         lib.ssd_scan_launch.restype = ci
-        lib.ssd_scan_smem_bytes.argtypes = [ci, ci, ci]
+        lib.ssd_scan_scratch_floats.argtypes = [ll, ll, ci, ci, ci, ci]
+        lib.ssd_scan_scratch_floats.restype = ll
+        lib.ssd_scan_smem_bytes.argtypes = [ci, ci, ci, ci]
         lib.ssd_scan_smem_bytes.restype = ctypes.c_size_t
+        lib.ssd_scan_kernel_info.argtypes = [ci, ci, ci, ci, ci, vp]
+        lib.ssd_scan_kernel_info.restype = ci
         _lib = lib
     return _lib
+
+
+def kernel_info(dtype: torch.dtype, pass_: str, N: int, P: int,
+                chunk: int) -> dict:
+    """What the compiler made of one pass (a key of :data:`PASSES`) for
+    ``dtype`` at (N, P, chunk), on the current CUDA device: registers and
+    local (spill) bytes per thread, static and dynamic shared memory,
+    resident blocks per SM, threads per block."""
+    out = (ctypes.c_longlong * 6)()
+    rc = library().ssd_scan_kernel_info(DTYPE_CODES[dtype], PASSES[pass_], N,
+                                        P, chunk, out)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan_kernel_info failed: CUDA error {rc}")
+    keys = ("registers", "local_bytes", "static_smem", "dynamic_smem",
+            "blocks_per_sm", "threads")
+    return dict(zip(keys, out))
 
 
 def _on_card(name: str, t: torch.Tensor, ndim: int, dtypes, device) -> None:
@@ -94,15 +128,18 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     A = A.contiguous()
     strides = (ctypes.c_longlong * 13)(*x.stride(), *dt.stride(),
                                        *B.stride(), *C.stride())
+    # per-chunk states, then the cumsum of every chunk (csrc/ssd_scan.cu)
+    scratch = torch.empty(lib.ssd_scan_scratch_floats(Bt, S, H, P, N, chunk),
+                          dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ssd_scan_launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                                  B.data_ptr(), C.data_ptr(),
                                  DTYPE_CODES[x.dtype], y.data_ptr(),
-                                 h.data_ptr(), Bt, S, H, P, N, chunk,
-                                 strides, stream)
+                                 h.data_ptr(), scratch.data_ptr(), Bt, S, H,
+                                 P, N, chunk, strides, stream)
     if rc != 0:
-        smem = lib.ssd_scan_smem_bytes(N, P, chunk)
+        smem = lib.ssd_scan_smem_bytes(DTYPE_CODES[x.dtype], N, P, chunk)
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {rc} "
                            f"(shared memory {smem} bytes, chunk {chunk})")
     ssd_scan.launches += 1

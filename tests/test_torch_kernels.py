@@ -631,3 +631,188 @@ def test_blocked_gram_sweep_matches_the_per_coordinate_sweep(B, m, n):
         np.testing.assert_allclose(rs[1].numpy(), rs[0].numpy(),
                                    rtol=1e-12, atol=1e-12)
     assert float(got) > 0 and bool((xs[1] != 0).any())
+
+
+# ------------------------------------------------------------------ #
+# The arithmetic of csrc/ssd_scan.cu's bf16 body (chunk states, the  #
+# state pass over chunks, chunk outputs), modelled in torch on the CPU #
+# ------------------------------------------------------------------ #
+from repro.kernels.ssd_scan import ssd_scan as pallas_ssd_scan  # noqa: E402
+
+
+def _assert_signed_split_exact(p):
+    """p1 + p2 + p3, summed in fp32, equals p bit for bit where |p| ≥
+    2^-110, and is within 2^-133 of it below, for either sign."""
+    p = torch.as_tensor(p, dtype=torch.float32).reshape(-1)
+    p1, p2, p3 = _split3(p)
+    total = (p1.float() + p2.float()) + p3.float()
+    big = p.abs() >= SPLIT_EXACT_FROM
+    assert torch.equal(total[big].view(torch.int32),
+                       p[big].view(torch.int32))
+    assert bool(((total - p).abs()[~big] <= 2.0 ** -133).all())
+
+
+def _split_matmul(eq, fp32_factor, bf16_factor):
+    """einsum of an fp32 factor and a bf16-valued one as the kernel does
+    it: the fp32 factor split into three bf16 terms, each product exact in
+    fp32, the three summed in fp32."""
+    return sum(torch.einsum(eq, t.float(), bf16_factor)
+               for t in _split3(fp32_factor))
+
+
+def _ssd_split_model(x, dt, A, B, C, chunk):
+    """fp32 model of the bf16 body → (y fp32, h).  x, B, C bf16-valued;
+    S may be ragged (the missing rows count as dt = 0).
+
+    (a) per chunk: s = cumsum(dt·A); Hc = Σ_q (w·B)_qᵀ X with w =
+    exp(s_L − s)·dt, w·B rounded once in fp32 and split into three bf16
+    terms; (b) h_c = exp(s_L,c)·h_{c−1} + Hc_c over the chunks in order,
+    keeping the state entering each; (c) G = C·Bᵀ (bf16 products, fp32
+    sums), W = G·exp(s_t − s_u)·dt_u with the exponent formed only for
+    u ≤ t, y = Σ_q W_q·X + exp(s)·Σ_q C·h_q with W and h_prev split."""
+    f32 = torch.float32
+    Bt, S, H, P = x.shape
+    N = B.shape[-1]
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+
+    def chunks(t):
+        t = torch.nn.functional.pad(t.to(f32),
+                                    [0, 0] * (t.dim() - 2) + [0, pad])
+        return t.reshape(Bt, nc, chunk, *t.shape[2:])
+    xf, dtf, Bf, Cf = chunks(x), chunks(dt), chunks(B), chunks(C)
+    s = torch.cumsum(dtf * A.to(f32), dim=2)            # (Bt, nc, L, H)
+    s_last = s[:, :, -1]                                # (Bt, nc, H)
+    # (a)
+    w = torch.exp(s_last[:, :, None] - s) * dtf
+    wB = w[..., None] * Bf[:, :, :, None, :]            # (Bt, nc, L, H, N)
+    Hc = _split_matmul("bcuhn,bcuhp->bchnp", wB, xf)
+    # (b)
+    h = torch.zeros((Bt, H, N, P), dtype=f32)
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = torch.exp(s_last[:, c])[:, :, None, None] * h + Hc[:, c]
+    h_prev = torch.stack(h_prev, dim=1)                 # (Bt, nc, H, N, P)
+    # (c)
+    G = torch.einsum("bctn,bcun->bctu", Cf, Bf)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool).tril()[:, :, None]
+    diff = (s[:, :, :, None, :] - s[:, :, None, :, :]).masked_fill(~tri, 0.0)
+    W = torch.where(tri, G[..., None] * torch.exp(diff)
+                    * dtf[:, :, None, :, :], torch.zeros(()))
+    y_inter = sum(torch.einsum("bctn,bchnp->bcthp", Cf, q.float())
+                  for q in _split3(h_prev))
+    y = y_inter * torch.exp(s)[..., None] + _split_matmul(
+        "bctuh,bcuhp->bcthp", W, xf)
+    return y.reshape(Bt, nc * chunk, H, P)[:, :S], h
+
+
+def _ssd_bf16_inputs(Bt, S, H, P, N, seed, A_max=16.0):
+    """x, B, C with bf16 values (as fp32 numpy), dt in (0.001, 0.301), A
+    = −linspace(1, A_max, H): the mixer's ranges."""
+    rng = np.random.default_rng(seed)
+
+    def bf(shape):
+        a = rng.standard_normal(shape).astype(np.float32)
+        return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+    x, B, C = bf((Bt, S, H, P)), bf((Bt, S, N)), bf((Bt, S, N))
+    dt = (rng.random((Bt, S, H)) * 0.3 + 1e-3).astype(np.float32)
+    A = -np.linspace(1.0, A_max, H).astype(np.float32)
+    return x, dt, A, B, C
+
+
+#: The model against the JAX package: y within 5e-5 × max |y|, h within
+#: 5e-5 × max |h|.  The split is exact, but jnp.cumsum sums dt·A in
+#: another order than torch.cumsum, and over a chunk of 256 with A = −16
+#: that moves exp(s_t − s_u) by up to ≈ 1.5e-5 relative (the port's plain
+#: version reads 1.46e-5 against the same reference).  Against the port's
+#: plain version (the same cumsum): 1e-6 (readings ≈ 9e-8).
+JAX_RTOL, PLAIN_RTOL = 5e-5, 1e-6
+
+
+def _assert_model_close(got, want, rtol):
+    (y, h), (y0, h0) = got, want
+    y, h = np.asarray(y, np.float32), np.asarray(h, np.float32)
+    y0, h0 = np.asarray(y0, np.float32), np.asarray(h0, np.float32)
+    assert np.isfinite(y).all() and np.isfinite(h).all()
+    assert np.abs(y - y0).max() <= rtol * np.abs(y0).max()
+    assert np.abs(h - h0).max() <= rtol * np.abs(h0).max()
+
+
+def _model(arrs, chunk):
+    x, dt, A, B, C = arrs
+    return _ssd_split_model(torch.from_numpy(x).to(torch.bfloat16),
+                            torch.from_numpy(dt), torch.from_numpy(A),
+                            torch.from_numpy(B).to(torch.bfloat16),
+                            torch.from_numpy(C).to(torch.bfloat16), chunk)
+
+
+def test_ssd_split_model_matches_the_pallas_kernel_at_chunk_256():
+    """Chunk 256 with A down to −16, where the reference's oracle is NaN:
+    the model against ``repro.kernels.ssd_scan.ssd_scan`` in interpret
+    mode (which masks before the product), two chunks."""
+    arrs = _ssd_bf16_inputs(1, 512, 2, 16, 32, seed=256)
+    want = pallas_ssd_scan(*map(jnp.asarray, arrs), chunk=256,
+                           interpret=True)
+    _assert_model_close(_model(arrs, 256), want, JAX_RTOL)
+
+
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_ssd_split_model_matches_the_reference_oracle(chunk):
+    """Chunks 16 and 64 (A down to −4, where the oracle's decay mask does
+    not overflow): the model against ``repro.kernels.ref.ssd_scan_ref``."""
+    arrs = _ssd_bf16_inputs(2, 4 * chunk, 3, 8, 16, seed=chunk, A_max=4.0)
+    want = jref.ssd_scan_ref(*map(jnp.asarray, arrs), chunk=chunk)
+    _assert_model_close(_model(arrs, chunk), want, JAX_RTOL)
+
+
+@pytest.mark.parametrize("S,chunk", [(100, 16), (300, 64), (37, 8),
+                                     (600, 256)],
+                         ids=str)
+def test_ssd_split_model_matches_the_ports_plain_version_on_ragged_s(S,
+                                                                   chunk):
+    """Ragged S (the model counts the missing rows as dt = 0), chunk 256
+    among them: against the port's ``ref.ssd_scan_ragged``."""
+    arrs = _ssd_bf16_inputs(2, S, 3, 8, 16, seed=S)
+    want = tref.ssd_scan_ragged(*map(torch.from_numpy, arrs), chunk=chunk)
+    _assert_model_close(_model(arrs, chunk), want, PLAIN_RTOL)
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.lists(st.floats(-4096.0, 4096.0, width=32), min_size=1,
+                max_size=256))
+def test_bf16_split_of_signed_w_is_exact(ws):
+    """W = G·exp(s_t − s_u)·dt_u: signed, |G| up to N·max|C|·max|B|."""
+    _assert_signed_split_exact(ws)
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.lists(st.floats(-1024.0, 1024.0, width=32), min_size=1,
+                max_size=256))
+def test_bf16_split_of_signed_state_is_exact(hs):
+    """h_prev: the fp32 state entering a chunk, signed."""
+    _assert_signed_split_exact(hs)
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.lists(st.tuples(st.floats(0.0, 80.0, width=32),
+                          st.floats(float(np.float32(0.001)), float(np.float32(0.301)), width=32),
+                          st.floats(-8.0, 8.0, width=32)),
+                min_size=1, max_size=256))
+def test_bf16_split_of_weighted_b_is_exact(terms):
+    """exp(s_L − s_u)·dt_u·B_u as the kernel forms it in fp32 (exponent
+    −d ≤ 0, dt in the mixer's range, B a bf16 value of either sign)."""
+    d, dt, b = (torch.tensor(v, dtype=torch.float32) for v in zip(*terms))
+    b = b.to(torch.bfloat16).float()
+    _assert_signed_split_exact(torch.exp(-d) * dt * b)
+
+
+def test_bf16_split_covers_a_dense_grid_of_signed_values():
+    """±exp(−x) on a grid of 200001 points in [0, 80] scaled by 3000, and
+    the 2^20 consecutive fp32 values just above −1."""
+    x = torch.linspace(0.0, 80.0, 200001, dtype=torch.float32)
+    e = torch.exp(-x) * 3000.0
+    _assert_signed_split_exact(torch.cat([e, -e]))
+    below_one = torch.arange(0x3F800000 - (1 << 20), 0x3F800000,
+                             dtype=torch.int32).view(torch.float32)
+    _assert_signed_split_exact(-below_one)

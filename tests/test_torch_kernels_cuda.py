@@ -9,9 +9,11 @@ the JAX package, so it runs on a machine with only PyTorch:
 ``gather_rows`` and ``scatter_rows`` only move data, so they must equal
 their plain versions bit for bit.  ``ssd_scan`` sums in another order
 than its plain version: y within 1e-4 × max |y| and h within 1e-4 ×
-max |h| in fp32; in bf16, y within 2 bf16 ulps of each element plus
-that fp32 bound (both round an fp32 sum that differs in the last bits).
-Two launches on the same inputs give the same bits.
+max |h| in fp32; in bf16 (fp16), y within 2 bf16 (fp16) ulps of each
+element plus that fp32 bound (both round an fp32 sum that differs in the
+last bits).  Two launches on the same inputs give the same bits.  Its
+bf16 kernels run on the tensor cores (HMMA in their SASS), the fp32 and
+fp16 ones none.
 ``flash_attention`` sums in another order than its plain version: fp32
 within 2e-5 (the reference's ``tests/test_kernels.py`` tolerance), bf16
 within 2 bf16 ulps of each element plus that.  Its bf16 body runs both
@@ -213,9 +215,10 @@ def assert_ssd_close(got, want):
     assert y.dtype == y0.dtype and y.shape == y0.shape
     yf, y0f = y.float(), y0.float()
     bound = 1e-4 * float(y0f.abs().max())
-    if y.dtype == torch.bfloat16:
+    if y.dtype in (torch.bfloat16, torch.float16):
+        bits = 7 if y.dtype == torch.bfloat16 else 10
         ulp = torch.exp2(torch.floor(torch.log2(
-            y0f.abs().clamp_min(2.0 ** -126))) - 7)
+            y0f.abs().clamp_min(2.0 ** -126))) - bits)
         assert ((yf - y0f).abs() <= 2 * ulp + bound).all()
     else:
         assert float((yf - y0f).abs().max()) <= bound
@@ -237,6 +240,60 @@ def test_ssd_scan_kernel_matches_plain_version(cuda, case, dtype, strided):
     assert_ssd_close(got, tssd.ssd_scan.plain(*args, chunk=chunk))
     again = tops.ssd_scan(*args, chunk=chunk)
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+#: Many chunks at batch 1, bf16, x/B/C strided as the mixer passes them:
+#: ragged 4133 and a prefill_32k sequence (128 chunks).
+SSD_LONG = [(1, 4133, 64, 64, 128, 256), (1, 32768, 64, 64, 128, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_LONG, ids=str)
+def test_ssd_scan_kernel_over_many_chunks_at_batch_one(cuda, case):
+    """The chunk-parallel passes over 17 and 128 chunks of one row: within
+    the plain version's tolerance, and a second launch bit for bit."""
+    Bt, S, H, P, N, chunk = case
+    args = ssd_inputs(Bt, S, H, P, N, torch.bfloat16, seed=S, device=cuda,
+                      strided=True)
+    got = tops.ssd_scan(*args, chunk=chunk)
+    assert_ssd_close(got, tssd.ssd_scan.plain(*args, chunk=chunk))
+    again = tops.ssd_scan(*args, chunk=chunk)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [64, 70])
+@pytest.mark.parametrize("strided", [False, True])
+def test_ssd_scan_kernel_in_fp16_at_the_reduced_config(cuda, S, strided):
+    """fp16 (fp32 arithmetic on the CUDA cores) at the reduced mamba2
+    config (2, 64, 3, 16, 8), chunk 16, and with ragged S: within 2 fp16
+    ulps plus the fp32 bound, and a second launch bit for bit."""
+    args = ssd_inputs(2, S, 3, 16, 8, torch.float16, seed=S, device=cuda,
+                      strided=strided)
+    got = tops.ssd_scan(*args, chunk=16)
+    assert_ssd_close(got, tssd.ssd_scan.plain(*args, chunk=16))
+    again = tops.ssd_scan(*args, chunk=16)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.cuda
+def test_ssd_scan_bf16_kernels_run_on_tensor_cores(cuda):
+    """The SASS of the bf16 chunk-state and chunk-output kernels holds
+    HMMA (mma.sync); the fp32 and fp16 ones and the state pass hold no
+    tensor-core instruction; each pass's registers, spills and occupancy
+    are readable at the full mamba2-1.3b width."""
+    counts = build.sass_counts("ssd_scan")
+    ours = {k: v for k, v in counts.items()
+            if "ssd_chunk" in k or "ssd_state_pass" in k}
+    mma = {k: v for k, v in ours.items() if "_mma" in k}
+    rest = {k: v for k, v in ours.items() if k not in mma}
+    assert len(mma) == 2 and len(rest) == 5, sorted(counts)
+    assert all(v["HMMA"] + v["HGMMA"] > 0 for v in mma.values()), mma
+    assert all(sum(v.values()) == 0 for v in rest.values()), rest
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
+        for pass_ in tssd.PASSES:
+            info = tssd.kernel_info(dtype, pass_, 128, 64, 256)
+            assert info["registers"] > 0 and info["blocks_per_sm"] >= 1, info
 
 
 @pytest.mark.cuda
