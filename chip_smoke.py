@@ -16,10 +16,15 @@ each failing the run when its check fails:
                memory and blocks per SM of ``flash_attention`` (bf16 at D
                80 and 128, fp32), of each of ``ssd_scan``'s three passes
                (bf16 and fp32 at mamba2-1.3b's width), clusters of
-               ``gauss_seidel_sweep`` at fig1d's m; and ``cuobjdump
-               -sass`` of the flash-attention and ssd-scan libraries: HMMA
-               in every bf16 instantiation, no tensor-core instruction in
-               any fp32 (or fp16) one.
+               ``gauss_seidel_sweep`` at fig1d's m, and of
+               ``batched_best_response`` at (1, 100000) and (8, 100000)
+               (registers, cluster size, elements per CTA, clusters the
+               card holds at once, the form: one launch at both); and
+               ``cuobjdump -sass`` of the flash-attention and ssd-scan
+               libraries: HMMA in every bf16 instantiation, no
+               tensor-core instruction in any fp32 (or fp16) one; of
+               ``flexa_prox``: no ATOMG, RED(G) or MEMBAR in any
+               instantiation of the one-launch batched best response.
 2. kernels  — every kernel against its plain torch version on the card:
                ``gather_rows`` / ``scatter_rows`` exactly (pure data
                movement) over a sweep that includes the fig1d shapes, the
@@ -147,7 +152,11 @@ Sq > Skv refused.  And ``apply_update``, ``batched_best_response`` and
 misaligned view; scalar, per-instance and dense d; c 0, a host value and
 per instance; γ·m 0, 1, 0.9 and per instance; fp32 and bf16 x: outputs
 bitwise equal to the plain versions', e2 within 1e-5 relative, a second
-launch bitwise.  And ``compact_best_response``: C 1, 64, 200, 5000 (and
+launch bitwise (the batched sweep adds (1, 100000), the solver's solo
+shape); then 10 calls each of ``batched_best_response`` at (1, 100000) and
+(8, 100000) under ``torch.profiler``: 20 device records, each the
+one-launch kernel (no memset, no second kernel).  And
+``compact_best_response``: C 1, 64, 200, 5000 (and
 4999), scalar and dense d, fp32 and bf16 x/g, ragged K with −1 pads, an
 all-pad idx, K = 1: z bitwise, pad rows 0, e2 within 1e-5 relative, a
 second launch bitwise.  And ``gauss_seidel_sweep`` at (m, n) = (500,
@@ -157,8 +166,11 @@ another order), a second run bitwise; at the race's shape it is held in
 the fig1 phase.
 
 Then a ``{"kernels": [...]}`` line (device time, plain time, library
-time and bound of each kernel at its path's shapes), the card's name and
-power limit, and, last, the device line.
+time and bound of each kernel at its path's shapes; beside the bound of
+the microsecond kernels — the gather, the scatter, the batched kernels
+and ``compact_best_response`` — ``launch_floor_ms``, the device time of an
+empty kernel replayed from a CUDA graph in the same harness), the card's
+name and power limit, and, last, the device line.
 """
 import contextlib
 import json
@@ -225,11 +237,13 @@ DESCENT = dict(arch="stablelm-3b", batch=4, seq=64, steps=30)
 BR_SHAPES = [(1,), (1000,), (2560, 2560), (2560, 6912), (50304, 2560)]
 BR_MISALIGNED = (1_000_001,)       # a view one element into its storage
 #: Shapes of the apply_update sweep (the misaligned view added as above)
-#: and (B, n) of the batched sweep: 1, ragged 1000, the batch phase's
-#: bucket, lm_head's elements in two instances, and rows of 1001 from a
-#: view one element into its storage (the scalar loop).
+#: and (B, n) of the batched sweep: 1, ragged 1000, the solo solver's
+#: (1, 100000), the batch phase's bucket, lm_head's elements in two
+#: instances (the best response's two-level form), and rows of 1001 from
+#: a view one element into its storage (the scalar loop).
 UPD_SHAPES = [(1,), (1000,), (8, 100_000), (50304, 2560)]
-BATCHED_SHAPES = [(1, 1), (1, 1000), (8, 100_000), (2, 50304 * 1280)]
+BATCHED_SHAPES = [(1, 1), (1, 1000), (1, 100_000), (8, 100_000),
+                  (2, 50304 * 1280)]
 BATCHED_MISALIGNED = (3, 1001)
 #: The batch phase: B fig1d instances (seeds 0..B−1), generated on this
 #: many host threads; each holds ≈ 10 GB of host memory while it runs.
@@ -266,6 +280,10 @@ CBR_SWEEP = [(100_000, 35926, 65536, 1), (2000, 700, 1024, 1),
              (2000, 700, 1024, 64), (2000, 700, 1024, 200),
              (3000, 1100, 2048, 5000), (1000, 300, 512, 4999),
              (300, 0, 64, 64), (300, 0, 64, 1), (1000, 1, 1, 5000)]
+#: Opcodes read from the SASS of ``flexa_prox``: the one-launch batched
+#: best response must hold none of the first four (global atomics and
+#: reductions, memory fences).
+BR_SASS_OPS = ("ATOMG", "RED", "REDG", "MEMBAR", "HMMA")
 #: gauss_seidel_sweep against its plain version, one sweep from x = 0 at
 #: fig1d: V = rᵀr + c‖x‖₁ and max |δ| within GS_SWEEP_RTOL relative, and
 #: max |x − x_plain| within GS_SWEEP_XTOL × max |x_plain| (the dot products
@@ -370,8 +388,9 @@ def top_kernels(torch, prof, n=12):
 #: closed right after a training step lost the records of the step's end:
 #: its optimizer, every ``best_response`` in it.  The margins keep the
 #: work's records inside the window; the train phase prints how far
-#: inside (``profiled_step_edges_ms``).
-PROFILE_HEAD_S = 1.0
+#: inside (``profiled_step_edges_ms``).  At 1 s a mamba2-1.3b prefill's
+#: profile on one host kept 47 of its 48 ``ssd_scan`` records.
+PROFILE_HEAD_S = 2.0
 PROFILE_TAIL_FRAC = 0.2            # of the work's time, if more than HEAD
 
 
@@ -432,7 +451,7 @@ def phase_setup(torch, build, fp, ssd, fa, gs):
     return card
 
 
-def phase_hopper(torch, build, fa, gs, ssd):
+def phase_hopper(torch, build, fp, fa, gs, ssd):
     """The kernels redesigned for Hopper as the compiler and the card
     made them: registers, local (spill) bytes, static and dynamic shared
     memory, blocks per SM (``flash_attention`` at the prefill's D 80 and
@@ -442,7 +461,10 @@ def phase_hopper(torch, build, fa, gs, ssd):
     tensor-core instructions in the SASS of ``flash_attention`` and
     ``ssd_scan``: every bf16 instantiation (one per D / 16; the chunk
     states and chunk outputs) must hold HMMA or HGMMA, no fp32 (or fp16)
-    one any."""
+    one any; ``batched_best_response`` at the solver's (1, 100000) and
+    (8, 100000): one launch of one cluster of C > 1 CTAs per instance, no
+    global atomic, reduction or fence in any instantiation of that
+    form's SASS (the two-level form's ticket shows as ATOMG and MEMBAR)."""
     import re
     info = {f"flash_attention {str(dt).split('.')[-1]} D={D}":
             fa.kernel_info(dt, D)
@@ -454,6 +476,20 @@ def phase_hopper(torch, build, fa, gs, ssd):
             info[f"ssd_scan {str(dt).split('.')[-1]} {pass_}"] = \
                 ssd.kernel_info(dt, pass_, N, P, chunk)
     info[f"gauss_seidel_sweep m={FIG1D['m']}"] = gs.kernel_info(FIG1D["m"])
+    for B in (1, 8):
+        info[f"batched_best_response n={FIG1D['n']} B={B}"] = \
+            fp.batched_kernel_info(FIG1D["n"], B)
+    forms = {"one_launch": "flexa_batched_best_response_kernelI",
+             "two_level": "flexa_batched_best_response_two_level_kernelI"}
+    br_sass = {f: {"instantiations": 0, **dict.fromkeys(BR_SASS_OPS, 0)}
+               for f in forms}
+    for name, ops in build.sass_counts("flexa_prox",
+                                       opcodes=BR_SASS_OPS).items():
+        for form, key in forms.items():
+            if key in name:
+                br_sass[form]["instantiations"] += 1
+                for op in BR_SASS_OPS:
+                    br_sass[form][op] += ops[op]
     sass = {"bf16": {}, "fp32": {}}
     for name, ops in build.sass_counts("flash_attention").items():
         if "flash_attention_fwd" not in name:
@@ -473,7 +509,18 @@ def phase_hopper(torch, build, fa, gs, ssd):
             elem.group(1)] if elem else "")
         ssd_sass[kind][key] = ops["HMMA"] + ops["HGMMA"]
     say("hopper_kernels", info=info, tensor_core_sass=sass,
-        ssd_scan_tensor_core_sass=ssd_sass)
+        ssd_scan_tensor_core_sass=ssd_sass,
+        batched_best_response_sass=br_sass)
+    one = br_sass["one_launch"]
+    check(one["instantiations"] == 12 and not any(
+        one[op] for op in ("ATOMG", "RED", "REDG", "MEMBAR")),
+        f"the one-launch batched best response holds atomics or fences: "
+        f"{br_sass}")
+    for B in (1, 8):
+        bi = info[f"batched_best_response n={FIG1D['n']} B={B}"]
+        check(bi["form"] == "one_launch" and bi["cluster_ctas"] > 1,
+              f"batched_best_response at ({B}, {FIG1D['n']}) is not one "
+              f"launch of a cluster: {bi}")
     check(len(sass["bf16"]) == 8 and all(v > 0 for v in sass["bf16"].values()),
           f"flash_attention's bf16 body lacks tensor-core SASS: {sass}")
     check(len(sass["fp32"]) == 8 and not any(sass["fp32"].values()),
@@ -772,6 +819,7 @@ def phase_kernels(torch, fp, ssd, fa, gs, dev):
     err["flash_attention"] = max(fa_err.values())
     upd_err, upd_cases = upd_sweep(torch, fp, dev)
     bat_err, bat_e2_rel, bat_cases = batched_sweep(torch, fp, dev)
+    bat_one = batched_one_launch(torch, fp, dev)
     err["apply_update"] = upd_err
     err.update(bat_err)
     from repro_torch.kernels import ops as kops
@@ -783,7 +831,8 @@ def phase_kernels(torch, fp, ssd, fa, gs, dev):
         best_response_max_e2_rel_err=br_e2_rel, flash_attention_cases=n_fa,
         flash_attention_max_abs_err=fa_err, apply_update_cases=upd_cases,
         batched_cases=bat_cases, batched_best_response_max_e2_rel_err=(
-            bat_e2_rel), compact_best_response_cases=cbr_cases,
+            bat_e2_rel), batched_best_response_one_launch=bat_one,
+        compact_best_response_cases=cbr_cases,
         compact_best_response_max_e2_rel_err=cbr_e2_rel,
         gauss_seidel_sweep_check=dict(zip(("m", "n", "sweeps"), GS_CHECK)),
         gauss_seidel_sweep_max_abs_dx=gs_dx,
@@ -901,6 +950,29 @@ def batched_sweep(torch, fp, dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return err, rel_max, n
+
+
+def batched_one_launch(torch, fp, dev, calls=10):
+    """``calls`` batched best responses at (1, 100000) and at (8, 100000)
+    (fp32, dense d, c per instance, as the solver calls it) under
+    ``torch.profiler``: every device record must be the one-launch
+    kernel, one per call (no memset, no second kernel)."""
+    args = [batched_inputs(torch, B, FIG1D["n"], torch.float32, "dense",
+                           "instance", 80 + B, dev) for B in (1, 8)]
+    for a in args:
+        fp.batched_best_response(*a)
+    with profiled(torch) as prof:
+        for a in args:
+            for _ in range(calls):
+                fp.batched_best_response(*a)
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    ours = [n for n in names if "flexa_batched_best_response_kernel" in n]
+    check(len(names) == len(ours) == 2 * calls,
+          f"batched_best_response: {len(names)} device records for "
+          f"{2 * calls} calls, {len(ours)} of the one-launch kernel; others: "
+          f"{sorted(set(names) - set(ours))[:4]}")
+    return {"calls": 2 * calls, "device_records": len(names)}
 
 
 def br_inputs(torch, shape, dtype, dense, seed, dev, offset=0):
@@ -1613,11 +1685,13 @@ def serve_run(torch, spec, wrapper, kname, dev, profile=True):
         # each of the wrapper's device kernels: [records, summed ms]
         by_kernel, _ = device_kernels(torch, prof, {
             sub: (sub,) for sub in KERNEL_NAMES[kname]})
+        edges, _ = window_edges(torch, prof)
         del prof
         check(per_kernel[kname][0] == cfg.num_layers == prof_launches,
               f"{kname} launches in the prefill: profiler "
               f"{per_kernel[kname][0]}, counter {prof_launches}, want "
-              f"{cfg.num_layers}")
+              f"{cfg.num_layers} (records by kernel {by_kernel}; the "
+              f"records' edges inside the window, ms: {edges})")
         # prefill + 8 decode steps under the profiler: device busy in decode
         with profiled(torch) as prof:
             t = time.perf_counter()
@@ -2000,8 +2074,11 @@ def kernel_line(torch, fp, ssd, fa, r, launches, serve_launches, err,
     ``ms``, ``plain_ms`` and ``library_ms`` are device times (calls
     replayed from a CUDA graph); ``eager_ms`` is the kernel's time per
     call when launched from Python back to back, host overhead
-    included."""
+    included; ``launch_floor_ms`` is an empty kernel's time
+    (``torch.cuda._sleep(0)``) replayed from a CUDA graph the same way,
+    the least a launch costs there."""
     n, m = FIG1D["n"], FIG1D["m"]
+    floor = graph_ms(torch, lambda: torch.cuda._sleep(0))
     K = max(r.meta["program_widths"])
     src = torch.randn((n, m), device=dev)
     idx, inv = _plan(torch, n, K, K, 11, dev)
@@ -2035,6 +2112,7 @@ def kernel_line(torch, fp, ssd, fa, r, launches, serve_launches, err,
                      "plain_ms": round(t["plain_ms"], 5),
                      "bound_ms": round(t["bound_ms"], 5),
                      "bound_by": "bytes",
+                     "launch_floor_ms": round(floor, 5),
                      "library_ms": round(t["library_ms"], 5),
                      "eager_ms": round(t["eager_ms"], 5),
                      "shape": shape})
@@ -2043,14 +2121,14 @@ def kernel_line(torch, fp, ssd, fa, r, launches, serve_launches, err,
                        err["best_response"], dev))
     rows.append(fa_row(torch, fa, launches["flash_attention"],
                        err["flash_attention"], dev))
-    rows += update_rows(torch, fp, launches, err, dev)
+    rows += update_rows(torch, fp, launches, err, floor, dev)
     rows.append(cbr_row(torch, fp, err["compact_best_response"], cbr_state,
-                        dev))
+                        floor, dev))
     rows.append(gs_row(launches["gauss_seidel_sweep"], gs_sweep))
     return rows
 
 
-def cbr_row(torch, fp, err, state, dev):
+def cbr_row(torch, fp, err, state, floor, dev):
     """compact_best_response at ``gather_rows``' timed shape: x, g (n, m)
     = (100000, 5000) fp32, a full K = 65536 bucket, scalar d, device times
     of calls replayed from a CUDA graph (the plain version's: eager, it
@@ -2085,6 +2163,7 @@ def cbr_row(torch, fp, err, state, dev):
             "max_abs_err": err,
             "ms": round(t["ms"], 5), "plain_ms": round(t["plain_ms"], 5),
             "bound_ms": round(t["bound_ms"], 5), "bound_by": "bytes",
+            "launch_floor_ms": round(floor, 5),
             # no single PyTorch call gathers and soft-thresholds
             "library_ms": None, "eager_ms": round(t["eager_ms"], 5),
             "shape": f"x, g ({n}, {m}) fp32, K={K}, scalar d",
@@ -2114,7 +2193,7 @@ def gs_row(launches, sweep):
                       for k, v in sweep.items()}}
 
 
-def update_rows(torch, fp, launches, err, dev):
+def update_rows(torch, fp, launches, err, floor, dev):
     """apply_update at the train path's shapes (lm_head (50304, 2560)
     fp32, 0-d τ and γ·m, c = 0, in place as the optimizer calls it; and
     one step's 291 calls), times from CUDA events around back-to-back
@@ -2197,6 +2276,7 @@ def update_rows(torch, fp, launches, err, dev):
             "max_abs_err": err[name],
             "ms": round(t["ms"], 5), "plain_ms": round(t["plain_ms"], 5),
             "bound_ms": round(t["bound_ms"], 5), "bound_by": "bytes",
+            "launch_floor_ms": round(floor, 6),
             "library_ms": None,
             "shape": "x, g, d (8, 100000) fp32, c" + (
                 "" if name == "batched_best_response" else " and γ·m")
@@ -2377,7 +2457,7 @@ def main() -> int:
     try:
         card = phase_setup(torch, build, fp, ssd, fa, gs)
         phase = "hopper_kernels"
-        phase_hopper(torch, build, fa, gs, ssd)
+        phase_hopper(torch, build, fp, fa, gs, ssd)
         phase = "kernels"
         err = phase_kernels(torch, fp, ssd, fa, gs, dev)
         phase = "goldens"

@@ -1,12 +1,13 @@
 // Device helpers shared by the sources of csrc/: the soft threshold of the
-// FLEXA best response, and the fixed-order block and grid sums that keep z
-// equal to the plain torch version bit for bit and give e2 the same bits on
-// every launch (flexa_prox.cu, compact_rows.cu, gauss_seidel.cu); cp.async
-// staging (gauss_seidel.cu, flash_attention.cu, ssd_scan.cu); and the
-// tensor-core pieces of the bf16 bodies (flash_attention.cu, ssd_scan.cu):
-// ldmatrix, mma.sync m16n8k16 and the exact three-term bf16 split of fp32
-// values.  Included by those sources, not built on its own
-// (kernels/build.py builds *.cu).
+// FLEXA best response, and the fixed-order block, grid and cluster sums
+// that keep z equal to the plain torch version bit for bit and give e2 the
+// same bits on every launch (flexa_prox.cu, compact_rows.cu,
+// gauss_seidel.cu); the launch of a grid of thread-block clusters
+// (flexa_prox.cu, gauss_seidel.cu); cp.async staging (gauss_seidel.cu,
+// flash_attention.cu, ssd_scan.cu); and the tensor-core pieces of the bf16
+// bodies (flash_attention.cu, ssd_scan.cu): ldmatrix, mma.sync m16n8k16
+// and the exact three-term bf16 split of fp32 values.  Included by those
+// sources, not built on its own (kernels/build.py builds *.cu).
 
 #pragma once
 
@@ -98,6 +99,141 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ------------------------------------------------ thread-block clusters
+
+// The launch of a grid of clusters of C CTAs along x (grid.x a multiple of
+// C) with smem bytes of dynamic shared memory; attr is the config's
+// cluster attribute.  A size above 8 needs the kernel's
+// cudaFuncAttributeNonPortableClusterSizeAllowed set first.
+inline cudaLaunchConfig_t cluster_config(dim3 grid, int C, int threads,
+                                         size_t smem,
+                                         cudaLaunchAttribute* attr,
+                                         cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_size() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+// barrier.cluster in halves.  The arrival is relaxed: it orders no memory
+// (a release would cost a MEMBAR), and only tells the others that this
+// CTA runs and, after fence.mbarrier_init, that its mbarrier is set up.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The shared state of cluster_sum: rank 0's mbarrier, which counts the
+// bytes of the other ranks' partials, and the partials by rank.
+struct ClusterInbox {
+  uint64_t bar;
+  float slot[32];
+};
+__device__ __forceinline__ ClusterInbox& cluster_inbox() {
+  __shared__ ClusterInbox box;
+  return box;
+}
+
+// The address of p (this CTA's shared memory) in the CTA of rank `rank`.
+__device__ __forceinline__ uint32_t cluster_map(const void* p,
+                                                unsigned rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, unsigned parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// A cluster's sum without global scratch, atomics or fences, in two
+// calls.  cluster_sum_begin, by every thread at the kernel's start: rank
+// 0 sets up its mbarrier to expect 4 bytes from each other rank, and every
+// CTA arrives (relaxed) at the cluster barrier.  cluster_sum, by every
+// thread as the kernel's last statement: each CTA's block_sum of acc; the
+// barrier's wait (long complete by then: it only guards the mbarrier's
+// set-up); each rank q > 0 sends its partial into slot q of rank 0's
+// shared memory by st.async, which counts its bytes on rank 0's mbarrier
+// when they land; rank 0's first warp waits for them, reads the slots
+// (lane q takes slot q, zeros past the size) and sums them by the fixed
+// warp-shuffle tree into *out.  The order depends only on the cluster's
+// size, so the same inputs give the same bits on every launch.  A cluster
+// of one CTA passes no barrier.
+__device__ __forceinline__ void cluster_sum_begin() {
+  if (cluster_size() == 1) return;
+  if (threadIdx.x == 0 && cluster_rank() == 0) {
+    const uint32_t bar = smem_addr(&cluster_inbox().bar);
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+                 : "memory");
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+            bar),
+        "r"(4 * (cluster_size() - 1))
+        : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_arrive_relaxed();
+}
+
+__device__ __forceinline__ void cluster_sum(float acc, float* out) {
+  __shared__ float sh[32];
+  const float s = block_sum(acc, sh);
+  const unsigned C = cluster_size();
+  if (C == 1) {
+    if (threadIdx.x == 0) *out = s;
+    return;
+  }
+  ClusterInbox& box = cluster_inbox();
+  const unsigned rank = cluster_rank();
+  cluster_wait();
+  if (rank != 0) {
+    if (threadIdx.x == 0)
+      asm volatile(
+          "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 "
+          "[%0], %1, [%2];\n" ::"r"(cluster_map(&box.slot[rank], 0)),
+          "r"(__float_as_uint(s)), "r"(cluster_map(&box.bar, 0))
+          : "memory");
+    return;
+  }
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0) box.slot[0] = s;
+    const uint32_t bar = smem_addr(&box.bar);
+    while (!mbar_try_wait(bar, 0)) {
+    }
+    __syncwarp();
+    const float p = warp_sum(threadIdx.x < C ? box.slot[threadIdx.x] : 0.f);
+    if (threadIdx.x == 0) *out = p;
+  }
 }
 
 // ------------------------------------------------- tensor cores (bf16 in)

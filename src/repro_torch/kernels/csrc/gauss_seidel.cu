@@ -524,18 +524,7 @@ struct Plan {
 // bytes of dynamic shared memory; attr is the config's cluster attribute.
 cudaLaunchConfig_t one_cluster(int C, size_t smem, cudaLaunchAttribute* attr,
                                cudaStream_t st) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = C;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
+  return cluster_config(dim3(C), C, kThreads, smem, attr, st);
 }
 
 // The kernel, cluster size and shared memory of a sweep at m rows: the

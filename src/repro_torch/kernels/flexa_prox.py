@@ -20,7 +20,12 @@ They replace the Pallas TPU kernels of that file:
   flexa_prox.py:174 / :223 (``pallas_call`` :188 / :239): the same over a
   (B, n) bucket with d (), (B,) or dense, c a host float, 0-d or (B,), γ·m
   a 0-d or (B,) device tensor; e2 (B,).  Their threshold is the solver chain's
-  (1/d)·c, not c/d (``csrc/flexa_prox.cu`` says why).
+  (1/d)·c, not c/d (``csrc/flexa_prox.cu`` says why).  The best response
+  is one launch of one thread-block cluster per instance up to
+  :data:`BATCHED_CTA_ELEMS` × the card's largest cluster elements per
+  instance (:func:`batched_blocks`), its e2 summed across the cluster
+  without global scratch; :func:`batched_kernel_info` says what the
+  compiler and the card made of it.
 * :func:`gather_rows`  — ``gather_rows`` at flexa_prox.py:278
   (``pallas_call`` :294): out[k] = src[idx[k]] in fp32, zero rows for
   idx −1.  ``src`` may be fp32, bf16 or fp16.
@@ -60,6 +65,8 @@ graph.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -79,6 +86,12 @@ BR_THREADS, BR_ELEMS_PER_THREAD = 256, 8
 #: Resident blocks per SM the best-response grid is capped at.
 BR_BLOCKS_PER_SM = 8
 
+#: The one-launch batched best response: at most this many elements per
+#: CTA (512 threads × 16; kCtaElems in the source), at least this many per
+#: CTA before another joins the cluster, and at most this many CTAs in a
+#: cluster (8 on a card that cannot place 16).
+BATCHED_CTA_ELEMS, BATCHED_SPLIT, BATCHED_MAX_CLUSTER = 8192, 2048, 16
+
 #: Substrings of the device-kernel names (as ``torch.profiler`` records
 #: them) of each wrapper of this module.
 KERNEL_NAMES = {"gather_rows": ("gather_wide", "gather_narrow"),
@@ -86,7 +99,8 @@ KERNEL_NAMES = {"gather_rows": ("gather_wide", "gather_narrow"),
                 "best_response": ("flexa_best_response_kernel",),
                 "apply_update": ("flexa_apply_update_kernel",),
                 "batched_best_response":
-                    ("flexa_batched_best_response_kernel",),
+                    ("flexa_batched_best_response_kernel",
+                     "flexa_batched_best_response_two_level_kernel"),
                 "batched_apply_update":
                     ("flexa_batched_apply_update_kernel",),
                 "compact_best_response": ("compact_br_wide",
@@ -97,6 +111,9 @@ D_SCALAR, D_INSTANCE, D_DENSE = 0, 1, 2
 
 _lib = None
 _br_lib = None
+#: (SM count, largest cluster of the one-launch batched best response) by
+#: CUDA device index, read once per device.
+_cards: dict[int, tuple[int, int]] = {}
 
 
 def br_library() -> ctypes.CDLL:
@@ -114,8 +131,12 @@ def br_library() -> ctypes.CDLL:
                                             ll, ci, vp]
         lib.apply_update_launch.restype = ci
         lib.batched_best_response_launch.argtypes = [
-            vp, vp, ci, vp, ci, vp, ci, fl, vp, vp, ll, ci, ci, vp]
+            vp, vp, ci, vp, ci, vp, ci, fl, vp, vp, vp, ll, ci, ci, ci, vp]
         lib.batched_best_response_launch.restype = ci
+        lib.batched_max_cluster.argtypes = [vp]
+        lib.batched_max_cluster.restype = ci
+        lib.batched_kernel_info.argtypes = [ci, ci, vp]
+        lib.batched_kernel_info.restype = ci
         lib.batched_apply_update_launch.argtypes = [
             vp, vp, ci, vp, ci, vp, ci, fl, vp, ci, vp, ll, ci, ci, vp]
         lib.batched_apply_update_launch.restype = ci
@@ -238,13 +259,66 @@ def apply_update(x: torch.Tensor, g: torch.Tensor, d: torch.Tensor,
     return out
 
 
-def batched_blocks(n: int, B: int, sm_count: int) -> int:
-    """Blocks per instance of the batched kernels: a function of n, B and
-    the SM count only (e2's summation order is then fixed), the whole
-    grid capped near 8 blocks per SM."""
+def update_blocks(n: int, B: int, sm_count: int) -> int:
+    """Blocks per instance of the grid-stride batched kernels
+    (``batched_apply_update``, and the best response's two-level form): a
+    function of n, B and the SM count only (e2's summation order is then
+    fixed), the whole grid capped near 8 blocks per SM."""
     per_block = BR_THREADS * BR_ELEMS_PER_THREAD
     cap = max(1, BR_BLOCKS_PER_SM * sm_count // B)
     return max(1, min(-(-n // per_block), cap))
+
+
+class BatchedGrid(NamedTuple):
+    """Grid of a batched best response: ``ctas`` per instance (a cluster
+    in the one-launch form), ``per_cta`` elements each (in the two-level
+    form ⌈n / ctas⌉, walked grid-stride), and the form."""
+    ctas: int
+    per_cta: int
+    one_launch: bool
+
+
+@functools.lru_cache(maxsize=1024)
+def batched_blocks(n: int, B: int, sm_count: int,
+                   max_cluster: int = BATCHED_MAX_CLUSTER) -> BatchedGrid:
+    """Grid of :func:`batched_best_response` from (n, B, SM count) and the
+    card's largest cluster, nothing else, so e2's summation order is the
+    same on every launch.
+
+    Up to ``max_cluster`` × :data:`BATCHED_CTA_ELEMS` elements per
+    instance (131072 on an H100) one launch of one cluster per instance:
+    C = ⌈n / :data:`BATCHED_SPLIT`⌉ CTAs capped at ``max_cluster`` (1 where
+    one CTA covers n), each a share of ⌈n / C⌉ rounded up to 8 elements.
+    Above it the two-level form, :func:`update_blocks` blocks per
+    instance."""
+    if n <= max_cluster * BATCHED_CTA_ELEMS:
+        C = min(max_cluster, max(1, -(-n // BATCHED_SPLIT)))
+        return BatchedGrid(C, -(-n // (8 * C)) * 8, True)
+    blocks = update_blocks(n, B, sm_count)
+    return BatchedGrid(blocks, -(-n // blocks), False)
+
+
+def _card(index: int) -> tuple[int, int]:
+    """(SM count, largest cluster of the one-launch form) of CUDA device
+    ``index``, read on the first call for it."""
+    card = _cards.get(index)
+    if card is None:
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        out = ctypes.c_int()
+        with torch.cuda.device(index):
+            rc = br_library().batched_max_cluster(ctypes.byref(out))
+        _raise_on(rc, "batched_max_cluster")
+        card = _cards[index] = (sms, out.value)
+    return card
+
+
+def _launch(index: int, fn, *args) -> int:
+    """``fn(*args, stream)`` on device ``index``'s current stream, under a
+    device guard only where ``index`` is not the current device."""
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def _instance_arg(v, B: int, dev, name: str):
@@ -264,14 +338,18 @@ def _instance_arg(v, B: int, dev, name: str):
 def _batched_args(x, g, d, c):
     """Checks of a batched call → (B, n, d mode, c pointer, c stride, c
     host value)."""
-    _check_xg(x, g)
+    dev = x.device
+    _check_cuda(dev, (("x", x),), BR_DTYPES)
+    _check_cuda(dev, (("g", g),), (x.dtype,))
+    _check_cuda(dev, (("d", d),))
     if x.dim() != 2:
         raise ValueError(f"x must be (B, n), got {tuple(x.shape)}")
     B, n = x.shape
+    if g.shape != x.shape:
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, g "
+                         f"{tuple(g.shape)}")
     if B > 65535:
         raise ValueError(f"B = {B} instances exceed the grid's 65535")
-    dev = x.device
-    _check_cuda(dev, (("d", d),))
     if d.dim() == 0:
         mode = D_SCALAR
     elif d.shape == (B,):
@@ -298,19 +376,42 @@ def batched_best_response(x: torch.Tensor, g: torch.Tensor,
     z = torch.empty((B, n), dtype=torch.float32, device=dev)
     if B == 0 or n == 0:
         return z, torch.zeros((B,), dtype=torch.float32, device=dev)
-    blocks = batched_blocks(
-        n, B, torch.cuda.get_device_properties(dev).multi_processor_count)
-    # per-block partials, the per-instance ticket counters, e2
-    work = torch.empty(B * (blocks + 2), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = br_library().batched_best_response_launch(
-            x.data_ptr(), g.data_ptr(), DTYPE_CODES[x.dtype], d.data_ptr(),
-            mode, cp, cs, ch, z.data_ptr(), work.data_ptr(), n, B, blocks,
-            stream)
+    e2 = torch.empty((B,), dtype=torch.float32, device=dev)
+    index = x.get_device()
+    grid = batched_blocks(n, B, *_card(index))
+    # the two-level form's per-block partials and per-instance tickets
+    work = None if grid.one_launch else torch.empty(
+        B * (grid.ctas + 1), dtype=torch.float32, device=dev)
+    rc = _launch(index, br_library().batched_best_response_launch,
+                 x.data_ptr(), g.data_ptr(), DTYPE_CODES[x.dtype],
+                 d.data_ptr(), mode, cp, cs, ch, z.data_ptr(),
+                 e2.data_ptr(), None if work is None else work.data_ptr(),
+                 n, B, grid.ctas, grid.per_cta)
     _raise_on(rc, "batched_best_response")
     batched_best_response.launches += 1
-    return z, work[B * (blocks + 1):]
+    return z, e2
+
+
+def batched_kernel_info(n: int, B: int) -> dict:
+    """What the compiler and the card (the current CUDA device) made of
+    :func:`batched_best_response` at (n, B) for the solver's inputs (fp32
+    x and g, dense d, 16-byte aligned rows): registers and local (spill)
+    bytes per thread, threads per CTA, the cluster size C (CTAs per
+    instance), elements per CTA, clusters of C the card can hold at once,
+    and the form a launch there takes (``"one_launch"`` or
+    ``"two_level"``; the cluster keys describe the one-launch form
+    only)."""
+    index = torch.cuda.current_device()
+    grid = batched_blocks(n, B, *_card(index))
+    out = (ctypes.c_longlong * 5)()
+    rc = br_library().batched_kernel_info(
+        int(not grid.one_launch), grid.ctas if grid.one_launch else 1, out)
+    _raise_on(rc, "batched_kernel_info")
+    return {"registers": out[0], "local_bytes": out[1], "threads": out[2],
+            "cluster_ctas": grid.ctas if grid.one_launch else 1,
+            "per_cta": grid.per_cta,
+            "max_active_clusters": out[4] if grid.one_launch else None,
+            "form": "one_launch" if grid.one_launch else "two_level"}
 
 
 def batched_apply_update(x: torch.Tensor, g: torch.Tensor, d: torch.Tensor,
@@ -328,14 +429,11 @@ def batched_apply_update(x: torch.Tensor, g: torch.Tensor, d: torch.Tensor,
     out = torch.empty_like(x)
     if B == 0 or n == 0:
         return out
-    dev = x.device
-    blocks = batched_blocks(
-        n, B, torch.cuda.get_device_properties(dev).multi_processor_count)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = br_library().batched_apply_update_launch(
-            x.data_ptr(), g.data_ptr(), DTYPE_CODES[x.dtype], d.data_ptr(),
-            mode, cp, cs, ch, gp, gs, out.data_ptr(), n, B, blocks, stream)
+    index = x.get_device()
+    rc = _launch(index, br_library().batched_apply_update_launch,
+                 x.data_ptr(), g.data_ptr(), DTYPE_CODES[x.dtype],
+                 d.data_ptr(), mode, cp, cs, ch, gp, gs, out.data_ptr(), n,
+                 B, update_blocks(n, B, _card(index)[0]))
     _raise_on(rc, "batched_apply_update")
     batched_apply_update.launches += 1
     return out

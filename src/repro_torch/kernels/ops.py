@@ -95,7 +95,10 @@ def flexa_apply(x: torch.Tensor, g: torch.Tensor, d, c, gamma_mask, *,
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
-    """A (B, ...) bucket as contiguous (B, n) rows."""
+    """A (B, ...) bucket as contiguous (B, n) rows (the tensor itself when
+    it already is)."""
+    if t.dim() == 2 and t.is_contiguous():
+        return t
     return t.contiguous().reshape(t.shape[0], -1)
 
 
@@ -114,14 +117,14 @@ def flexa_best_response_batched(x: torch.Tensor, g: torch.Tensor, d, c):
     :func:`repro_torch.kernels.ref.flexa_best_response_batched_ref`).  No
     column padding: the CUDA kernel masks a ragged n itself.
     """
-    _on(x.device, g)
-    if x.device.type == "cpu":
+    dev = x.device
+    _on(dev, g)
+    if dev.type == "cpu":
         return ref.flexa_best_response_batched_ref(x, g, d, c)
-    if x.device.type == "cuda":
+    if dev.type == "cuda":
         z, e2 = _fp.batched_best_response(_rows(x), _rows(g),
-                                          _batched_d(d, x),
-                                          _weight(c, x.device))
-        return z.view(x.shape), e2
+                                          _batched_d(d, x), _weight(c, dev))
+        return (z if x.dim() == 2 else z.view(x.shape)), e2
     raise ValueError(f"no batched_best_response kernel for device "
                      f"{x.device}")
 
@@ -131,13 +134,15 @@ def flexa_apply_batched(x: torch.Tensor, g: torch.Tensor, d, c,
     """Fused batched update x + γᵢ·mᵢ·(x̂ − x) over a (B, ...) bucket, in
     x's dtype; x̂ as :func:`flexa_best_response_batched` computes it and
     ``gamma_mask`` a float or a 0-d or (B,) tensor."""
-    _on(x.device, g)
-    if x.device.type == "cpu":
+    dev = x.device
+    _on(dev, g)
+    if dev.type == "cpu":
         return ref.flexa_apply_batched_ref(x, g, d, c, gamma_mask)
-    if x.device.type == "cuda":
-        return _fp.batched_apply_update(
-            _rows(x), _rows(g), _batched_d(d, x), _weight(c, x.device),
-            _on_card(gamma_mask, x.device)).view(x.shape)
+    if dev.type == "cuda":
+        out = _fp.batched_apply_update(_rows(x), _rows(g), _batched_d(d, x),
+                                       _weight(c, dev),
+                                       _on_card(gamma_mask, dev))
+        return out if x.dim() == 2 else out.view(x.shape)
     raise ValueError(f"no batched_apply_update kernel for device "
                      f"{x.device}")
 

@@ -380,8 +380,43 @@ def test_new_kernels_cpu_dispatch_never_touches_them():
         is tref.flexa_apply_batched_ref
 
 
-def test_batched_grid_depends_on_n_b_and_sms_only():
-    blocks = flexa_prox.batched_blocks
+@pytest.mark.parametrize("sms,cap", [(132, 16), (132, 8), (78, 16)])
+def test_batched_grid_is_one_cluster_per_instance_up_to_the_switch(sms,
+                                                                   cap):
+    """The batched best response's grid: one cluster of C ≤ cap CTAs per
+    instance, C = 1 where one CTA's share covers n, each CTA a share of
+    at most BATCHED_CTA_ELEMS elements (a multiple of 8) with none empty;
+    a function of (n, B, SM count, cap) only, B and the SM count mattering
+    only past the switch to the two-level form at cap × BATCHED_CTA_ELEMS
+    elements."""
+    grid = flexa_prox.batched_blocks
+    share, split = flexa_prox.BATCHED_CTA_ELEMS, flexa_prox.BATCHED_SPLIT
+    switch = cap * share
+    for n in (1, 7, 1000, split):
+        assert grid(n, 8, sms, cap) == (1, -(-n // 8) * 8, True)
+    assert grid(split + 1, 1, sms, cap).ctas == 2
+    assert grid(cap * split, 1, sms, cap).ctas == cap
+    assert grid(cap * split + 1, 1, sms, cap).ctas == cap
+    for n in (split + 1, 3 * split + 5, cap * split, cap * split + 1,
+              100_000, switch - 1, switch):
+        if n > switch:
+            continue
+        C, per, one = grid(n, 8, sms, cap)
+        assert one and 1 < C <= cap <= 16
+        assert per % 8 == 0 and per <= share
+        assert (C - 1) * per < n <= C * per
+        assert grid(n, 1, 1, cap) == grid(n, 2000, sms, cap) == (C, per,
+                                                                 one)
+    assert grid(switch, 3, sms, cap).one_launch
+    two = grid(switch + 1, 3, sms, cap)
+    assert not two.one_launch
+    assert two.ctas == flexa_prox.update_blocks(switch + 1, 3, sms)
+    assert flexa_prox.batched_blocks(100_000, 8, 132) == (16, 6256, True)
+    assert flexa_prox.batched_blocks(100_000, 1, 132, 8).one_launch is False
+
+
+def test_update_grid_depends_on_n_b_and_sms_only():
+    blocks = flexa_prox.update_blocks
     assert blocks(1, 1, 132) == 1 and blocks(2048, 8, 132) == 1
     assert blocks(100_000, 8, 132) == 49
     assert blocks(100_000, 1, 132) == 49

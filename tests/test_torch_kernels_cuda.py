@@ -668,8 +668,14 @@ def test_reduced_dense_serves_on_the_card_through_the_kernel(cuda, arch):
 # apply_update, batched_best_response, batched_apply_update          #
 # ------------------------------------------------------------------ #
 #: Instance shapes of the batched sweep: 1, ragged 1000, the solver's
-#: (8, 100000) bucket and one with n not a multiple of 8 (scalar loop).
-BATCHED_SHAPES = [(1, 1), (1, 1000), (8, 100_000), (3, 1001), (4, 517)]
+#: (1, 100000) and (8, 100000), ones with n not a multiple of 8 (scalar
+#: loop); n one element past one CTA's share (2 CTAs), n that needs
+#: exactly 16 CTAs and one that would need 17 (16, a ragged last share),
+#: and the two sides of the switch to the two-level form (131072 on an
+#: H100's clusters of 16).
+BATCHED_SHAPES = [(1, 1), (1, 1000), (1, 100_000), (8, 100_000), (3, 1001),
+                  (4, 517), (2, 2049), (2, 32_768), (1, 32_769),
+                  (1, 131_072), (1, 131_073)]
 
 
 def batched_inputs(B, n, dkind, ckind, dtype, seed, device):
@@ -735,6 +741,50 @@ def test_batched_kernels_match_plain_versions(cuda, B, n, dtype, dkind,
         x, g, d, c, gm))
     z2, e22 = tops.flexa_best_response_batched(x, g, d, c)
     assert torch.equal(z2, z) and torch.equal(e22, e2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", [(1, 100_000), (8, 100_000), (3, 1001),
+                                 (2, 131_073)], ids=str)
+def test_batched_best_response_gives_the_same_bits_on_every_launch(cuda, B,
+                                                                   n):
+    """e2's cluster-wide sum (and the two-level form's) is in a fixed
+    order: three launches on one input give the same bits."""
+    x, g, d, c = batched_inputs(B, n, "dense", "instance", torch.float32,
+                                seed=7 + n, device=cuda)
+    runs = [flexa_prox.batched_best_response(x, g, d, c) for _ in range(3)]
+    for z, e2 in runs[1:]:
+        assert torch.equal(z, runs[0][0]) and torch.equal(e2, runs[0][1])
+
+
+@pytest.mark.cuda
+def test_batched_kernel_info_names_its_clusters(cuda):
+    """At the solver's n = 100000 a call is one launch of one cluster of
+    C > 1 CTAs per instance, and the card holds the 8 clusters of a
+    batch at once; past the switch the two-level form."""
+    solo = flexa_prox.batched_kernel_info(100_000, 1)
+    batch = flexa_prox.batched_kernel_info(100_000, 8)
+    for info in (solo, batch):
+        assert info["form"] == "one_launch", info
+        assert 1 < info["cluster_ctas"] <= 16 and info["threads"] == 512
+        assert info["cluster_ctas"] * info["per_cta"] >= 100_000
+    assert batch["max_active_clusters"] >= 8, batch
+    assert flexa_prox.batched_kernel_info(10**6, 2)["form"] == "two_level"
+
+
+@pytest.mark.cuda
+def test_batched_best_response_one_launch_form_has_no_atomics(cuda):
+    """The one-launch form's SASS (every instantiation) holds no global
+    atomic, reduction or memory fence; the two-level form's ticket does."""
+    counts = build.sass_counts("flexa_prox", opcodes=(
+        "ATOMG", "RED", "REDG", "MEMBAR"))
+    one = {k: v for k, v in counts.items()
+           if "flexa_batched_best_response_kernelI" in k}
+    two = {k: v for k, v in counts.items()
+           if "flexa_batched_best_response_two_level_kernelI" in k}
+    assert len(one) == 12 and len(two) == 12, sorted(counts)
+    assert not any(any(v.values()) for v in one.values()), one
+    assert all(v["ATOMG"] for v in two.values()), two
 
 
 @pytest.mark.cuda
