@@ -24,12 +24,18 @@ each failing the run when its check fails:
                libraries: HMMA in every bf16 instantiation, no
                tensor-core instruction in any fp32 (or fp16) one; of
                ``flexa_prox``: no ATOMG, RED(G) or MEMBAR in any
-               instantiation of the one-launch batched best response.
+               instantiation of the one-launch batched best response;
+               and ``compact_best_response`` at the path state's K =
+               16384, C = 1 (registers, spill bytes, CTAs per cluster,
+               clusters resident, the form: one launch), with no ATOMG,
+               RED(G) or MEMBAR in any instantiation of its one-cluster
+               form in ``compact_rows``' SASS.
 2. kernels  — every kernel against its plain torch version on the card:
                ``gather_rows`` / ``scatter_rows`` exactly (pure data
                movement) over a sweep that includes the fig1d shapes, the
-               path's padded bucket, ragged C, all-padding, K = 1 and
-               bf16/fp16 sources; ``ssd_scan`` at the reduced and the full
+               path's padded bucket, ragged C, all-padding, K = 1,
+               bf16/fp16 sources, and a scatter at a ragged n and on a
+               view one element into its storage; ``ssd_scan`` at the reduced and the full
                mamba2-1.3b width, ragged S, strided views of an xBC
                buffer, fp32 and bf16, and the decay-overflow case, within
                1e-4 × max |y| (bf16: 2 ulps per element plus that), finite
@@ -74,7 +80,9 @@ each failing the run when its check fails:
                ``ops.compact_best_response`` (no path calls it) once on
                the last point's real state: its support plan, x, ∇F and
                dense d in the (100000, 1) layout, z bit for bit the
-               composition ``gather_blocks`` → ``flexa_best_response``.
+               composition ``gather_blocks`` → ``flexa_best_response``,
+               and under ``torch.profiler`` the call one device record
+               (the one-cluster kernel: no memset, no second kernel).
 6. compact  — the compacted path against the masked-dense path at fig1b
                (m=2000, n=10000, 10% nnz) on the golden grid.
 6b. batch   — slice 5's batched path (``benchmarks/fig1.py:run_batched``
@@ -156,9 +164,10 @@ launch bitwise (the batched sweep adds (1, 100000), the solver's solo
 shape); then 10 calls each of ``batched_best_response`` at (1, 100000) and
 (8, 100000) under ``torch.profiler``: 20 device records, each the
 one-launch kernel (no memset, no second kernel).  And
-``compact_best_response``: C 1, 64, 200, 5000 (and
+``compact_best_response``: C 1, 7, 64, 200, 5000 (and
 4999), scalar and dense d, fp32 and bf16 x/g, ragged K with −1 pads, an
-all-pad idx, K = 1: z bitwise, pad rows 0, e2 within 1e-5 relative, a
+all-pad idx, K = 1, K·C at the one-cluster switch and one row past it:
+z bitwise, pad rows 0, e2 within 1e-5 relative, a
 second launch bitwise.  And ``gauss_seidel_sweep`` at (m, n) = (500,
 2000), 3 sweeps from x = 0: x within 1e-5 and each sweep's max |δ|
 within 1e-5 relative of the plain version (the dot products sum in
@@ -169,8 +178,11 @@ Then a ``{"kernels": [...]}`` line (device time, plain time, library
 time and bound of each kernel at its path's shapes; beside the bound of
 the microsecond kernels — the gather, the scatter, the batched kernels
 and ``compact_best_response`` — ``launch_floor_ms``, the device time of an
-empty kernel replayed from a CUDA graph in the same harness), the card's
-name and power limit, and, last, the device line.
+empty kernel replayed from a CUDA graph in the same harness; beside
+``scatter_rows`` its one-row-per-thread form on the same values with
+base a view one element into its storage, ``one_row_ms``), the card's
+name and power limit, and,
+last, the device line.
 """
 import contextlib
 import json
@@ -275,13 +287,22 @@ FIG1_ITERS = 1000
 FIG1_THRESHOLDS = (1e-2, 1e-4, 1e-6)
 #: (n_rows, k_valid, capacity, C) of the compact_best_response sweep: the
 #: (n, 1) layout of the fig1d path's bucket, C 1, 64, 200, fig1d's m =
-#: 5000 and ragged 4999, all padding, K = 1.
+#: 5000 and ragged 4999, all padding, K = 1; C 7 (one element per step of
+#: the one-cluster form), K·C at the one-cluster switch (16 × 8192) and
+#: one row past it.
 CBR_SWEEP = [(100_000, 35926, 65536, 1), (2000, 700, 1024, 1),
              (2000, 700, 1024, 64), (2000, 700, 1024, 200),
              (3000, 1100, 2048, 5000), (1000, 300, 512, 4999),
-             (300, 0, 64, 64), (300, 0, 64, 1), (1000, 1, 1, 5000)]
-#: Opcodes read from the SASS of ``flexa_prox``: the one-launch batched
-#: best response must hold none of the first four (global atomics and
+             (300, 0, 64, 64), (300, 0, 64, 1), (1000, 1, 1, 5000),
+             (3000, 1100, 2048, 7), (140_000, 100_000, 131_072, 1),
+             (140_000, 100_000, 131_073, 1)]
+#: The bucket of the fig1d path's last-point state (9286 rows valid on
+#: an H100), at which ``hopper_kernels`` reads the one-cluster
+#: compact_best_response.
+PATH_STATE_K = 16384
+#: Opcodes read from the SASS of ``flexa_prox`` and ``compact_rows``: the
+#: one-launch batched best response and the one-cluster compact best
+#: response must hold none of the first four (global atomics and
 #: reductions, memory fences).
 BR_SASS_OPS = ("ATOMG", "RED", "REDG", "MEMBAR", "HMMA")
 #: gauss_seidel_sweep against its plain version, one sweep from x = 0 at
@@ -508,9 +529,32 @@ def phase_hopper(torch, build, fp, fa, gs, ssd):
         key = kern.group(1) + ({"f": "<float>", "6__half": "<half>"}[
             elem.group(1)] if elem else "")
         ssd_sass[kind][key] = ops["HMMA"] + ops["HGMMA"]
+    info[f"compact_best_response K={PATH_STATE_K} C=1"] = \
+        fp.compact_kernel_info(PATH_STATE_K, 1)
+    cbr_forms = {"one_launch": ("compact_br_clusterI",),
+                 "grid": ("compact_br_wideI", "compact_br_narrowI")}
+    cbr_sass = {f: {"instantiations": 0, **dict.fromkeys(BR_SASS_OPS, 0)}
+                for f in cbr_forms}
+    for name, ops in build.sass_counts("compact_rows",
+                                       opcodes=BR_SASS_OPS).items():
+        for form, keys in cbr_forms.items():
+            if any(k in name for k in keys):
+                cbr_sass[form]["instantiations"] += 1
+                for op in BR_SASS_OPS:
+                    cbr_sass[form][op] += ops[op]
     say("hopper_kernels", info=info, tensor_core_sass=sass,
         ssd_scan_tensor_core_sass=ssd_sass,
-        batched_best_response_sass=br_sass)
+        batched_best_response_sass=br_sass,
+        compact_best_response_sass=cbr_sass)
+    one = cbr_sass["one_launch"]
+    check(one["instantiations"] == 8 and not any(
+        one[op] for op in ("ATOMG", "RED", "REDG", "MEMBAR")),
+        f"the one-cluster compact best response holds atomics or fences: "
+        f"{cbr_sass}")
+    ci = info[f"compact_best_response K={PATH_STATE_K} C=1"]
+    check(ci["form"] == "one_launch" and ci["max_active_clusters"] >= 1,
+          f"compact_best_response at K={PATH_STATE_K} is not one launch of "
+          f"a cluster: {ci}")
     one = br_sass["one_launch"]
     check(one["instantiations"] == 12 and not any(
         one[op] for op in ("ATOMG", "RED", "REDG", "MEMBAR")),
@@ -802,6 +846,13 @@ def phase_kernels(torch, fp, ssd, fa, gs, dev):
     for dt in (torch.bfloat16, torch.float16):
         case(2000, 520, 700, 1024, dt, 6)
         case(2000, 1, 700, 1024, dt, 7)
+    # the scatter at a ragged N and on a view one element into its storage
+    for N, off in ((n + 3, 0), (n, 1)):
+        idx, inv = _plan(torch, N, VECTOR_K, VECTOR_K, 10 + off, dev)
+        vals = torch.randn((VECTOR_K, 1), device=dev)
+        base = torch.randn(N + off, device=dev)[off:].view(N, 1)
+        compare("scatter_rows", fp.scatter_rows(vals, inv, base),
+                fp.scatter_rows.plain(vals, inv, base))
     # mixed value/base dtypes of the scatter
     vals = torch.randn((64, 40), device=dev).to(torch.bfloat16)
     idx, inv = _plan(torch, 300, 50, 64, 8, dev)
@@ -1322,8 +1373,16 @@ def cbr_on_path_state(torch, fp, p, r, cfg):
           f"{float(e2)} vs {float(e0)}")
     valid = int((idx >= 0).sum())
     K = plan.capacity
+    with profiled(torch) as prof:
+        cbr(*cols, lam, idx)
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    check(len(names) == 1 and "compact_br_cluster" in names[0],
+          f"compact_best_response on the path state: device records "
+          f"{names}, not the one-cluster kernel alone")
     return {"launches": launches, "max_abs_err": err, "e2_rel_err": rel,
             "lambda": lam, "support": valid, "K": K,
+            "device_records": names,
             "ms": graph_ms(torch, lambda: cbr(*cols, lam, idx)),
             "eager_ms": cuda_ms(torch, lambda: cbr(*cols, lam, idx)),
             # eager: the plain version copies c to the card, which a
@@ -2092,7 +2151,16 @@ def kernel_line(torch, fp, ssd, fa, r, launches, serve_launches, err,
     del src
     vals = torch.randn((K, 1), device=dev)
     base = torch.randn((n, 1), device=dev)
+    # base one element into its storage: not 16-byte aligned, so the
+    # wrapper takes one row per thread, the design before the 4-row form
+    view = torch.empty(n + 1, device=dev)[1:].view(n, 1)
+    view.copy_(base)
+    check(torch.equal(fp.scatter_rows(vals, inv, view),
+                      fp.scatter_rows(vals, inv, base)),
+          "scatter_rows: the 4-row and one-row forms disagree")
     s = {"ms": graph_ms(torch, lambda: fp.scatter_rows(vals, inv, base)),
+         "one_row_ms": graph_ms(torch,
+                                lambda: fp.scatter_rows(vals, inv, view)),
          "eager_ms": cuda_ms(torch,
                              lambda: fp.scatter_rows(vals, inv, base)),
          "plain_ms": graph_ms(torch,
@@ -2115,6 +2183,8 @@ def kernel_line(torch, fp, ssd, fa, r, launches, serve_launches, err,
                      "launch_floor_ms": round(floor, 5),
                      "library_ms": round(t["library_ms"], 5),
                      "eager_ms": round(t["eager_ms"], 5),
+                     **({"one_row_ms": round(t["one_row_ms"], 5)}
+                        if "one_row_ms" in t else {}),
                      "shape": shape})
     rows.append(ssd_row(torch, ssd, serve_launches, err["ssd_scan"], dev))
     rows.append(br_row(torch, fp, launches["best_response"],

@@ -3,7 +3,9 @@
 // that keep z equal to the plain torch version bit for bit and give e2 the
 // same bits on every launch (flexa_prox.cu, compact_rows.cu,
 // gauss_seidel.cu); the launch of a grid of thread-block clusters
-// (flexa_prox.cu, gauss_seidel.cu); cp.async staging (gauss_seidel.cu,
+// (flexa_prox.cu, compact_rows.cu, gauss_seidel.cu) and the card's
+// largest cluster of a kernel (flexa_prox.cu, compact_rows.cu); cp.async
+// staging (gauss_seidel.cu,
 // flash_attention.cu, ssd_scan.cu); and the tensor-core pieces of the bf16
 // bodies (flash_attention.cu, ssd_scan.cu): ldmatrix, mma.sync m16n8k16
 // and the exact three-term bf16 split of fp32 values.  Included by those
@@ -123,6 +125,50 @@ inline cudaLaunchConfig_t cluster_config(dim3 grid, int C, int threads,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cfg;
+}
+
+// The most devices whose cluster attributes allow_wide_clusters remembers.
+constexpr int kMaxClusterDevices = 64;
+
+// Clusters above 8 CTAs allowed for kernel fn on the current device, set
+// on the first call there; done holds one flag per device.  Returns a
+// CUDA error code.
+inline int allow_wide_clusters(const void* fn, bool* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < kMaxClusterDevices && done[dev]) return 0;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < kMaxClusterDevices) done[dev] = true;
+  return 0;
+}
+
+// The largest cluster, 16 CTAs where the current device can place one of
+// every kernel fns[k] (k < n) at `threads` threads per CTA, else 8, into
+// *out; done[k] is fns[k]'s flags for allow_wide_clusters.  Returns a
+// CUDA error code.
+inline int largest_cluster(const void* const* fns,
+                           bool (*done)[kMaxClusterDevices], int n,
+                           int threads, int* out) {
+  int C = 16;
+  for (int k = 0; k < n; ++k) {
+    int rc = allow_wide_clusters(fns[k], done[k]);
+    if (rc != 0) return rc;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg =
+        cluster_config(dim3(16), 16, threads, 0, &attr, nullptr);
+    int clusters = 0;
+    if (cudaOccupancyMaxActiveClusters(&clusters, fns[k], &cfg) !=
+            cudaSuccess ||
+        clusters < 1) {
+      cudaGetLastError();              // a size the card refuses
+      C = 8;
+    }
+  }
+  *out = C;
+  return 0;
 }
 
 __device__ __forceinline__ unsigned cluster_rank() {

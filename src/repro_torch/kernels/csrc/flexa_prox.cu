@@ -671,22 +671,13 @@ const void* const kTwoLevel[2][3][2] = {
 #undef BY_D
 #undef BY_VEC
 constexpr int kOneLaunchKernels = 2 * 3 * 2;
-constexpr int kMaxDevices = 64;
 
-// Clusters above 8 CTAs allowed for one-launch kernel k (flat index into
-// kOneLaunch), set once per device.
-int allow_wide_clusters(int k) {
-  static bool ready[kMaxDevices][kOneLaunchKernels];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < kMaxDevices && ready[dev][k]) return 0;
-  err = cudaFuncSetAttribute((&kOneLaunch[0][0][0])[k],
-                             cudaFuncAttributeNonPortableClusterSizeAllowed,
-                             1);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < kMaxDevices) ready[dev][k] = true;
-  return 0;
+// allow_wide_clusters' flags of one-launch kernel k (flat index into
+// kOneLaunch), by device.
+bool one_launch_ready[kOneLaunchKernels][kMaxClusterDevices];
+
+int allow_one_launch(int k) {
+  return allow_wide_clusters((&kOneLaunch[0][0][0])[k], one_launch_ready[k]);
 }
 
 bool batched_vec(int dtype, const void* x, const void* g, const void* z,
@@ -761,7 +752,7 @@ extern "C" int batched_best_response_launch(
     return (int)cudaErrorInvalidValue;
   const int vec = batched_vec(dtype, x, g, z, d, d_mode, n, B);
   const int k = (dtype * 3 + d_mode) * 2 + vec;
-  int rc = allow_wide_clusters(k);
+  int rc = allow_one_launch(k);
   if (rc != 0) return rc;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
@@ -776,24 +767,8 @@ extern "C" int batched_best_response_launch(
 // where the card can place a cluster of 16 CTAs of every one-launch
 // kernel, else 8 (into *out).  Returns a CUDA error code.
 extern "C" int batched_max_cluster(int* out) {
-  int C = kMaxClusterCtas;
-  for (int k = 0; k < kOneLaunchKernels; ++k) {
-    int rc = allow_wide_clusters(k);
-    if (rc != 0) return rc;
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = cluster_config(
-        dim3(kMaxClusterCtas), kMaxClusterCtas, kOneThreads, 0, &attr,
-        nullptr);
-    int clusters = 0;
-    if (cudaOccupancyMaxActiveClusters(&clusters, (&kOneLaunch[0][0][0])[k],
-                                       &cfg) != cudaSuccess ||
-        clusters < 1) {
-      cudaGetLastError();              // a size the card refuses
-      C = 8;
-    }
-  }
-  *out = C;
-  return 0;
+  return largest_cluster(&kOneLaunch[0][0][0], one_launch_ready,
+                         kOneLaunchKernels, kOneThreads, out);
 }
 
 // What the compiler and the card made of the batched best response's
@@ -812,7 +787,7 @@ extern "C" int batched_kernel_info(int two_level, int C, long long* out) {
   if (rc != 0) return rc;
   int clusters = 0;
   if (!two_level) {
-    rc = allow_wide_clusters(k);
+    rc = allow_one_launch(k);
     if (rc != 0) return rc;
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t cfg =

@@ -28,20 +28,37 @@ They replace the Pallas TPU kernels of that file:
   compiler and the card made of it.
 * :func:`gather_rows`  — ``gather_rows`` at flexa_prox.py:278
   (``pallas_call`` :294): out[k] = src[idx[k]] in fp32, zero rows for
-  idx −1.  ``src`` may be fp32, bf16 or fp16.
+  idx −1.  ``src`` may be fp32, bf16 or fp16.  One block per output row
+  (16-byte loads) for wide rows, one thread per row for narrow ones.
 * :func:`scatter_rows` — ``scatter_rows`` at flexa_prox.py:308
   (``pallas_call`` :329): out[i] = vals[inv[i]] where inv[i] ≥ 0, else
-  base[i], as a new tensor in base's dtype.
+  base[i], as a new tensor in base's dtype; one launch, one writer per
+  row, no atomics.  The path's (n, 1) fp32 vectors, 16-byte aligned,
+  take the fast form: each thread 4 rows, an int4 of inv and a float4 of
+  base loaded back to back, then the vals loads of those rows together,
+  then one float4 store; ⌈n / 1024⌉ blocks of 256.  Every other call one
+  row per thread.  The C launcher picks the form and sizes the grid.
 * :func:`compact_best_response` — ``compact_best_response`` at
   flexa_prox.py:351 (``pallas_call`` :385): the gather of the K rows idx
   picks from x, g (and a dense d) fused with :func:`best_response` on
-  them; z (K, C) fp32 with pad rows 0, e2 over the gathered rows.  No
-  path of the reference calls it: it stands at its entry point,
-  ``ops.compact_best_response``.
+  them; z (K, C) fp32 with pad rows 0, e2 over the gathered rows.  Up to
+  the card's largest cluster × :data:`COMPACT_CTA_ELEMS` gathered
+  elements (every (n, 1) bucket up to K = 131072) it is one launch of
+  one thread-block cluster (:func:`compact_blocks`) in which each thread
+  issues all its idx loads, then all its gathered loads, before any
+  arithmetic, and e2 is summed across the cluster with no memset,
+  ticket, fence or atomic, only z and e2 allocated; above that, the grid
+  form with per-block partials and a ticket reset by a memset.
+  :func:`compact_kernel_info` says what the compiler and the card made
+  of the one-cluster kernel.  No path of the reference calls it: it
+  stands at its entry point, ``ops.compact_best_response``.
 
-All of them only stream bytes, so HBM bandwidth bounds them; the sources
-(``csrc/flexa_prox.cu``, ``csrc/compact_rows.cu``) say how each kernel
-is laid out for that.  The plain versions are
+Most of them only stream bytes, so HBM bandwidth bounds them; on the
+solver path's (n, 1) vectors the bytes take less than a launch, and
+the fixed cost of a call (its device operations, its chain of dependent
+loads) bounds them.  The sources (``csrc/flexa_prox.cu``,
+``csrc/compact_rows.cu``) say how each kernel is laid out for that.
+The plain versions are
 the ``*_ref`` functions of :mod:`repro_torch.kernels.ref`
 (``flexa_best_response_ref``, ``flexa_apply_ref``,
 ``flexa_best_response_batched_ref``, ``flexa_apply_batched_ref``,
@@ -91,11 +108,17 @@ BR_BLOCKS_PER_SM = 8
 #: CTA before another joins the cluster, and at most this many CTAs in a
 #: cluster (8 on a card that cannot place 16).
 BATCHED_CTA_ELEMS, BATCHED_SPLIT, BATCHED_MAX_CLUSTER = 8192, 2048, 16
+#: The one-cluster compact best response: at most this many gathered
+#: elements per CTA (512 threads × 16; kCbrCtaElems in compact_rows.cu),
+#: and at least this many per CTA before another joins the cluster.  A
+#: gather of scattered rows is bounded by what each SM's loads can have
+#: in flight, so it spreads over the cluster's 16 SMs early.
+COMPACT_CTA_ELEMS, COMPACT_SPLIT = 8192, 256
 
 #: Substrings of the device-kernel names (as ``torch.profiler`` records
 #: them) of each wrapper of this module.
 KERNEL_NAMES = {"gather_rows": ("gather_wide", "gather_narrow"),
-                "scatter_rows": ("scatter_narrow",),
+                "scatter_rows": ("scatter_rows4", "scatter_narrow"),
                 "best_response": ("flexa_best_response_kernel",),
                 "apply_update": ("flexa_apply_update_kernel",),
                 "batched_best_response":
@@ -103,7 +126,8 @@ KERNEL_NAMES = {"gather_rows": ("gather_wide", "gather_narrow"),
                      "flexa_batched_best_response_two_level_kernel"),
                 "batched_apply_update":
                     ("flexa_batched_apply_update_kernel",),
-                "compact_best_response": ("compact_br_wide",
+                "compact_best_response": ("compact_br_cluster",
+                                          "compact_br_wide",
                                           "compact_br_narrow")}
 
 #: d modes of the batched kernels (enum DMode in flexa_prox.cu).
@@ -111,9 +135,9 @@ D_SCALAR, D_INSTANCE, D_DENSE = 0, 1, 2
 
 _lib = None
 _br_lib = None
-#: (SM count, largest cluster of the one-launch batched best response) by
-#: CUDA device index, read once per device.
-_cards: dict[int, tuple[int, int]] = {}
+#: (SM count, largest cluster of a one-launch form) by (CUDA device index,
+#: ``"batched"`` or ``"compact"``), read once per device and kernel.
+_cards: dict[tuple[int, str], tuple[int, int]] = {}
 
 
 def br_library() -> ctypes.CDLL:
@@ -269,18 +293,27 @@ def update_blocks(n: int, B: int, sm_count: int) -> int:
     return max(1, min(-(-n // per_block), cap))
 
 
-class BatchedGrid(NamedTuple):
-    """Grid of a batched best response: ``ctas`` per instance (a cluster
-    in the one-launch form), ``per_cta`` elements each (in the two-level
-    form ⌈n / ctas⌉, walked grid-stride), and the form."""
+class ClusterGrid(NamedTuple):
+    """Grid of a batched best response (``ctas`` per instance) or of
+    :func:`compact_best_response`: ``ctas`` CTAs (a cluster in the
+    one-launch form), ``per_cta`` elements each (in the other form
+    ⌈n / ctas⌉, walked grid-stride), and the form."""
     ctas: int
     per_cta: int
     one_launch: bool
 
 
+def _one_cluster(n: int, max_cluster: int, split: int) -> ClusterGrid:
+    """One cluster over n ≤ ``max_cluster`` × the kernel's CTA share of
+    elements: ⌈n / split⌉ CTAs capped at ``max_cluster``, each a share
+    of ⌈n / C⌉ rounded up to 8 elements."""
+    C = min(max_cluster, max(1, -(-n // split)))
+    return ClusterGrid(C, -(-n // (8 * C)) * 8, True)
+
+
 @functools.lru_cache(maxsize=1024)
 def batched_blocks(n: int, B: int, sm_count: int,
-                   max_cluster: int = BATCHED_MAX_CLUSTER) -> BatchedGrid:
+                   max_cluster: int = BATCHED_MAX_CLUSTER) -> ClusterGrid:
     """Grid of :func:`batched_best_response` from (n, B, SM count) and the
     card's largest cluster, nothing else, so e2's summation order is the
     same on every launch.
@@ -292,23 +325,26 @@ def batched_blocks(n: int, B: int, sm_count: int,
     Above it the two-level form, :func:`update_blocks` blocks per
     instance."""
     if n <= max_cluster * BATCHED_CTA_ELEMS:
-        C = min(max_cluster, max(1, -(-n // BATCHED_SPLIT)))
-        return BatchedGrid(C, -(-n // (8 * C)) * 8, True)
+        return _one_cluster(n, max_cluster, BATCHED_SPLIT)
     blocks = update_blocks(n, B, sm_count)
-    return BatchedGrid(blocks, -(-n // blocks), False)
+    return ClusterGrid(blocks, -(-n // blocks), False)
 
 
-def _card(index: int) -> tuple[int, int]:
-    """(SM count, largest cluster of the one-launch form) of CUDA device
-    ``index``, read on the first call for it."""
-    card = _cards.get(index)
+def _card(index: int, kernel: str = "batched") -> tuple[int, int]:
+    """(SM count, largest cluster of ``kernel``'s one-launch form:
+    ``"batched"`` for :func:`batched_best_response`, ``"compact"`` for
+    :func:`compact_best_response`) of CUDA device ``index``, read on the
+    first call for them."""
+    card = _cards.get((index, kernel))
     if card is None:
         sms = torch.cuda.get_device_properties(index).multi_processor_count
+        query = (br_library().batched_max_cluster if kernel == "batched"
+                 else library().compact_max_cluster)
         out = ctypes.c_int()
         with torch.cuda.device(index):
-            rc = br_library().batched_max_cluster(ctypes.byref(out))
-        _raise_on(rc, "batched_max_cluster")
-        card = _cards[index] = (sms, out.value)
+            rc = query(ctypes.byref(out))
+        _raise_on(rc, f"{kernel} max_cluster")
+        card = _cards[(index, kernel)] = (sms, out.value)
     return card
 
 
@@ -448,13 +484,18 @@ def library() -> ctypes.CDLL:
         lib.gather_rows_launch.argtypes = [vp, ctypes.c_int, vp, vp, ll, ll,
                                            vp]
         lib.gather_rows_launch.restype = ctypes.c_int
-        lib.scatter_rows_launch.argtypes = [vp, ctypes.c_int, vp, vp, vp,
-                                            ctypes.c_int, ll, ll, vp]
-        lib.scatter_rows_launch.restype = ctypes.c_int
         ci = ctypes.c_int
+        lib.scatter_rows_launch.argtypes = [vp, ci, vp, vp, vp, ci, ll, ll,
+                                            vp]
+        lib.scatter_rows_launch.restype = ci
         lib.compact_best_response_launch.argtypes = [
-            vp, vp, ci, vp, ci, ctypes.c_float, vp, vp, vp, ll, ll, ci, vp]
+            vp, vp, ci, vp, ci, ctypes.c_float, vp, vp, vp, vp, ll, ll, ci,
+            ci, vp]
         lib.compact_best_response_launch.restype = ci
+        lib.compact_max_cluster.argtypes = [vp]
+        lib.compact_max_cluster.restype = ci
+        lib.compact_kernel_info.argtypes = [ci, ci, vp]
+        lib.compact_kernel_info.restype = ci
         _lib = lib
     return _lib
 
@@ -508,7 +549,10 @@ def scatter_rows(vals: torch.Tensor, inv: torch.Tensor,
     a new (N, C) tensor in base's dtype.
 
     ``vals`` (K, C), ``inv`` (N,) int32 with entries in [−1, K), ``base``
-    (N, C); fp32/bf16/fp16, contiguous, on one CUDA device.
+    (N, C); fp32/bf16/fp16, contiguous, on one CUDA device.  C = 1 with
+    fp32 vals and base and 16-byte aligned inv and base takes the 4-row
+    form; anything else, a view into its storage among them, one row per
+    thread.
     """
     dev = base.device
     _check("base", base, 2, tuple(DTYPE_CODES), dev)
@@ -521,30 +565,41 @@ def scatter_rows(vals: torch.Tensor, inv: torch.Tensor,
     out = torch.empty_like(base)
     if N == 0 or C == 0:
         return out
-    lib = library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.scatter_rows_launch(vals.data_ptr(), DTYPE_CODES[vals.dtype],
-                                     inv.data_ptr(), base.data_ptr(),
-                                     out.data_ptr(), DTYPE_CODES[base.dtype],
-                                     N, C, stream)
+    rc = _launch(base.get_device(), library().scatter_rows_launch,
+                 vals.data_ptr(), DTYPE_CODES[vals.dtype], inv.data_ptr(),
+                 base.data_ptr(), out.data_ptr(), DTYPE_CODES[base.dtype],
+                 N, C)
     _raise_on(rc, "scatter_rows")
     scatter_rows.launches += 1
     return out
 
 
-#: Narrow rows (C below this) take one thread per row in
+#: Narrow rows (C below this) take one thread per row in the grid form of
 #: ``compact_best_response`` (kNarrowCols in compact_rows.cu), 256 rows a
 #: block (kCbrNarrowThreads).
 NARROW_COLS, NARROW_ROWS_PER_BLOCK = 32, 256
 
 
-def compact_blocks(K: int, C: int, sm_count: int) -> int:
-    """Grid of ``compact_best_response``: a function of K, C and the SM
-    count only (so e2's summation order is fixed), capped at 8 blocks per
-    SM; wide rows go one per block-step, narrow rows 256 per block."""
+@functools.lru_cache(maxsize=1024)
+def compact_blocks(K: int, C: int, sm_count: int,
+                   max_cluster: int = BATCHED_MAX_CLUSTER) -> ClusterGrid:
+    """Grid of :func:`compact_best_response` from (K, C, SM count) and
+    the card's largest cluster, nothing else, so e2's summation order is
+    the same on every launch.
+
+    Up to ``max_cluster`` × :data:`COMPACT_CTA_ELEMS` gathered elements
+    K·C (every bucket of the (n, 1) path up to K = 131072 on an H100) one
+    launch of one cluster of ⌈K·C / :data:`COMPACT_SPLIT`⌉ CTAs capped at
+    ``max_cluster``, each a share of ⌈K·C / CTAs⌉ rounded up to 8: the
+    path's K = 16384 at C = 1 is 16 CTAs of 1024.  Above it the grid
+    form: wide rows (C ≥ 32) one per block-step, narrow rows 256 per
+    block, capped at 8 blocks per SM."""
+    n = K * C
+    if n <= max_cluster * COMPACT_CTA_ELEMS:
+        return _one_cluster(n, max_cluster, COMPACT_SPLIT)
     units = K if C >= NARROW_COLS else -(-K // NARROW_ROWS_PER_BLOCK)
-    return max(1, min(units, BR_BLOCKS_PER_SM * sm_count))
+    blocks = max(1, min(units, BR_BLOCKS_PER_SM * sm_count))
+    return ClusterGrid(blocks, -(-n // blocks), False)
 
 
 def compact_best_response(x: torch.Tensor, g: torch.Tensor,
@@ -572,19 +627,50 @@ def compact_best_response(x: torch.Tensor, g: torch.Tensor,
     z = torch.empty((K, C), dtype=torch.float32, device=dev)
     if K == 0 or C == 0:
         return z, torch.zeros((), dtype=torch.float32, device=dev)
-    blocks = compact_blocks(
-        K, C, torch.cuda.get_device_properties(dev).multi_processor_count)
-    # per-block partials, the ticket counter, e2
-    work = torch.empty(blocks + 2, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = library().compact_best_response_launch(
-            x.data_ptr(), g.data_ptr(), DTYPE_CODES[x.dtype], d.data_ptr(),
-            int(dense), float(c), idx.data_ptr(), z.data_ptr(),
-            work.data_ptr(), K, C, blocks, stream)
+    e2 = torch.empty((), dtype=torch.float32, device=dev)
+    index = x.get_device()
+    grid = compact_blocks(K, C, *_card(index, "compact"))
+    # the grid form's per-block partials and ticket counter
+    work = None if grid.one_launch else torch.empty(
+        grid.ctas + 1, dtype=torch.float32, device=dev)
+    rc = _launch(index, library().compact_best_response_launch,
+                 x.data_ptr(), g.data_ptr(), DTYPE_CODES[x.dtype],
+                 d.data_ptr(), int(dense), float(c), idx.data_ptr(),
+                 z.data_ptr(), e2.data_ptr(),
+                 None if work is None else work.data_ptr(), K, C,
+                 grid.ctas, grid.per_cta)
     _raise_on(rc, "compact_best_response")
     compact_best_response.launches += 1
-    return z, work[blocks + 1]
+    return z, e2
+
+
+#: The one-cluster form's ways of taking elements (enum CbrForm in
+#: compact_rows.cu): 4 rows a step at C = 1 with aligned idx and z, else
+#: one element.
+CBR_FORMS = ("rows4", "scalar")
+
+
+def compact_kernel_info(K: int, C: int) -> dict:
+    """What the compiler and the card (the current CUDA device) made of
+    :func:`compact_best_response` at (K, C) for fp32 x and g, dense d and
+    16-byte aligned pointers: registers and local (spill) bytes per
+    thread, threads per CTA, CTAs per cluster, elements per CTA, clusters
+    the card can hold at once, the one-cluster form's way of taking
+    elements (``CBR_FORMS``), and the form a launch there takes
+    (``"one_launch"`` or ``"grid"``; the other keys describe the
+    one-cluster kernel)."""
+    index = torch.cuda.current_device()
+    grid = compact_blocks(K, C, *_card(index, "compact"))
+    form = 0 if C == 1 else 1
+    out = (ctypes.c_longlong * 5)()
+    rc = library().compact_kernel_info(
+        grid.ctas if grid.one_launch else 1, form, out)
+    _raise_on(rc, "compact_kernel_info")
+    return {"registers": out[0], "local_bytes": out[1], "threads": out[2],
+            "cluster_ctas": grid.ctas if grid.one_launch else None,
+            "per_cta": grid.per_cta, "max_active_clusters": out[4],
+            "elements": CBR_FORMS[form],
+            "form": "one_launch" if grid.one_launch else "grid"}
 
 
 best_response.launches = 0

@@ -489,12 +489,104 @@ def test_compact_best_response_dispatch_rejects_out_of_range_idx():
             tops.compact_best_response(x, x, 1.0, 0.1, [0, bad])
 
 
-def test_compact_best_response_grid_depends_on_k_c_and_sms_only():
-    blocks = flexa_prox.compact_blocks
-    assert blocks(1, 5000, 132) == 1 and blocks(500, 64, 132) == 500
-    assert blocks(65536, 5000, 132) == 8 * 132
-    assert blocks(65536, 1, 132) == 256 and blocks(256, 1, 132) == 1
-    assert blocks(10**7, 1, 132) == 8 * 132
+@pytest.mark.parametrize("sms,cap", [(132, 16), (132, 8), (78, 16)])
+def test_compact_best_response_grid_depends_on_k_c_and_sms_only(sms, cap):
+    """compact_best_response's grid: one cluster of ≤ cap CTAs up to
+    cap × COMPACT_CTA_ELEMS gathered elements K·C, ⌈K·C / COMPACT_SPLIT⌉
+    CTAs, each a share of at most COMPACT_CTA_ELEMS elements (a multiple
+    of 8) with none empty (the path's K = 16384 bucket at C = 1: 16 CTAs
+    of 1024), the SM count mattering only past the switch; there the grid
+    form, wide rows one per block-step and narrow rows 256 per block,
+    capped at 8 blocks per SM."""
+    grid = flexa_prox.compact_blocks
+    share, split = flexa_prox.COMPACT_CTA_ELEMS, flexa_prox.COMPACT_SPLIT
+    switch = cap * share
+    assert grid(1, 1, sms, cap) == (1, 8, True)
+    assert grid(split, 1, sms, cap) == (1, split, True)
+    assert grid(split + 1, 1, sms, cap).ctas == 2
+    assert grid(1, 5000, sms, cap) == (cap, -(-5000 // (8 * cap)) * 8, True)
+    assert grid(16384, 1, sms, cap) == (cap, 16384 // cap, True)
+    assert grid(16384, 1, sms, cap) == grid(16384, 1, 1, cap)
+    for K, C in ((switch, 1), (switch // 64, 64), (split, 1), (500, 64),
+                 (3, 37), (switch // 5000, 5000)):
+        ctas, per, one = grid(K, C, sms, cap)
+        assert one and 1 <= ctas <= cap and per % 8 == 0 and per <= share
+        assert (ctas - 1) * per < K * C <= ctas * per
+        assert ctas == min(cap, -(-K * C // split))
+    assert grid(switch, 1, sms, cap) == (cap, share, True)
+    past = grid(switch + 1, 1, sms, cap)
+    assert not past.one_launch
+    assert past.ctas == min(-(-(switch + 1) // 256), 8 * sms)
+    wide = grid(switch // 64 + 1, 64, sms, cap)
+    assert not wide.one_launch
+    assert wide.ctas == min(switch // 64 + 1, 8 * sms)
+    assert grid(65536, 5000, sms, cap).ctas == 8 * sms
+    assert grid(10**7, 1, sms, cap).ctas == 8 * sms
+
+
+#: Constants of flexa_prox.py that size the compact best response's grid
+#: beside the C names they must equal in csrc/compact_rows.cu.
+COMPACT_SOURCE_CONSTANTS = [("COMPACT_CTA_ELEMS", "kCbrCtaElems"),
+                            ("BATCHED_MAX_CLUSTER", "kCbrMaxCluster"),
+                            ("NARROW_COLS", "kNarrowCols"),
+                            ("NARROW_ROWS_PER_BLOCK", "kCbrNarrowThreads")]
+
+
+@pytest.mark.parametrize("name,c_name", COMPACT_SOURCE_CONSTANTS, ids=str)
+def test_compact_grid_constants_match_the_source(name, c_name):
+    """The wrapper sizes compact_best_response's grid from copies of the
+    kernel's constants, which must equal the source's."""
+    import re
+    from pathlib import Path
+
+    src = (Path(flexa_prox.__file__).parent / "csrc" /
+           "compact_rows.cu").read_text()
+    m = re.search(rf"constexpr (?:int|long long) {c_name} = (\d+);", src)
+    assert m is not None, c_name
+    assert getattr(flexa_prox, name) == int(m.group(1))
+
+
+def test_compact_best_response_plain_version_at_the_path_state():
+    """At the fig1d path's last-point shape, a K = 16384 bucket with 9286
+    valid rows of (100000, 1) vectors and dense d: the plain version and
+    the CPU dispatch equal the reference's oracle, z exactly, pad rows 0,
+    e2 within 1e-5 relative."""
+    n_rows, k, cap = 100_000, 9286, 16384
+    idx, _ = _plan_arrays(n_rows, k, seed=23, cap=cap)
+    rng = np.random.default_rng(23)
+    x = rng.standard_normal((n_rows, 1)).astype(np.float32)
+    g = (0.5 * rng.standard_normal((n_rows, 1))).astype(np.float32)
+    d = rng.uniform(0.5, 3, (n_rows, 1)).astype(np.float32)
+    zr, er = jref.compact_best_response_ref(
+        jnp.asarray(x), jnp.asarray(g), jnp.asarray(d), 0.3,
+        jnp.asarray(idx))
+    targs = (torch.from_numpy(x), torch.from_numpy(g), torch.from_numpy(d))
+    for z, e2 in (tref.compact_best_response_ref(
+                      *targs, 0.3, torch.from_numpy(idx)),
+                  tops.compact_best_response(*targs, 0.3, idx)):
+        assert z.shape == (cap, 1) and z.dtype == torch.float32
+        np.testing.assert_array_equal(z.numpy(), np.asarray(zr))
+        np.testing.assert_array_equal(z.numpy()[idx < 0], 0.0)
+        np.testing.assert_allclose(float(e2), float(er), rtol=1e-5)
+
+
+@pytest.mark.parametrize("n_rows", [100_000, 100_003])
+def test_scatter_plain_version_at_the_path_shape(n_rows):
+    """65536 values scattered into (N, 1) fp32 vectors, N the path's
+    100000 and one that is not a multiple of 4: the plain version and the
+    CPU dispatch equal the reference's oracle exactly."""
+    idx, inv = _plan_arrays(n_rows, 65536, seed=n_rows, cap=65536)
+    vals_j, vals_t = _src(idx.size, 1, "float32", seed=5)
+    base_j, base_t = _src(n_rows, 1, "float32", seed=6)
+    want = np.asarray(jref.scatter_rows_ref(vals_j, jnp.asarray(inv),
+                                            base_j))
+    plain = tref.scatter_rows_ref(vals_t, torch.from_numpy(inv), base_t)
+    via_ops = tops.scatter_blocks(vals_t, inv, base_t)
+    for got in (plain, via_ops):
+        assert got.dtype == torch.float32 and got.shape == (n_rows, 1)
+        np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(via_ops.numpy()[inv < 0],
+                                  base_t.numpy()[inv < 0])
 
 
 def _gs_state(m, n, seed):

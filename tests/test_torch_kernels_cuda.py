@@ -25,12 +25,16 @@ it equals the plain z bit for bit; its e2 sums in another order: within
 bit for bit (elementwise, each op rounded as the plain version rounds
 it); a FLEXA iteration that calls them can be captured in a CUDA graph.
 ``compact_best_response`` gathers and computes as ``best_response``
-does: z bit for bit, pad rows exactly 0, e2 within 1e-5 relative.
+does: z bit for bit, pad rows exactly 0, e2 within 1e-5 relative; up to
+one cluster's 16 × 8192 gathered elements it is one device record with
+no atomic or fence in its SASS, and so is ``scatter_rows`` at the path's
+(100000, 1).
 ``gauss_seidel_sweep`` sums its dot products in another order than its
 plain version (and corrects them with a Gram block of 32 coordinates):
 after 3 sweeps x within 1e-5 and max |δ| within 1e-5 relative; two runs
 from one start give the same bits.
 """
+import json
 import numpy as np
 import pytest
 import torch
@@ -881,10 +885,18 @@ def test_batch_spec_on_the_card_matches_the_cpu(cuda, jacobi):
 
 #: (n_rows, k_active, capacity, C) of the compact_best_response sweep: the
 #: (n, 1) layout of ℓ1 block size 1, C 64, ragged 200, fig1d's m = 5000
-#: (the wide vector path) and 4999 (its scalar loop), all-padding.
+#: (the wide vector path) and 4999 (its scalar loop), all-padding; the
+#: fig1d path's last-point bucket (K = 16384, 9286 valid), a K that is
+#: not a multiple of 4, C 37 and 7 (one element per step, as every C > 1
+#: in the one-cluster form), and K·C at the
+#: H100's one-cluster switch (16 × 8192) and one row past it, at C 1 and
+#: 64.
 CBR_CASES = [(300, 170, 256, 1), (40, 23, 32, 64), (40, 23, 32, 200),
              (64, 37, 64, 5000), (64, 37, 64, 4999), (16, 0, 8, 64),
-             (16, 0, 8, 1)]
+             (16, 0, 8, 1), (100_000, 9286, 16384, 1), (301, 170, 255, 1),
+             (40, 23, 32, 37), (3000, 1100, 2048, 7),
+             (140_000, 100_000, 131_072, 1), (140_000, 100_000, 131_073, 1),
+             (4000, 2000, 2048, 64), (4000, 2000, 2049, 64)]
 
 
 def cbr_inputs(n_rows, k, cap, C, dtype, dense, seed, device):
@@ -916,6 +928,131 @@ def test_compact_best_response_kernel_matches_plain_version(cuda, case,
     assert abs(float(e2) - float(e0)) <= 1e-5 * float(e0)
     z2, e22 = tops.compact_best_response(x, g, d, 0.3, idx)
     assert torch.equal(z2, z) and torch.equal(e22, e2)
+
+
+@pytest.mark.cuda
+def test_compact_best_response_one_cluster_form_covers_the_path(cuda):
+    """On the card every (n, 1) bucket up to 16 × 8192 is one launch of
+    one cluster (16 CTAs of 1024 at the path's K = 16384) that the card
+    can place; the wide (65536, 5000) shape keeps the grid form."""
+    sms, cap = flexa_prox._card(torch.cuda.current_device(), "compact")
+    assert cap == 16, cap
+    path = flexa_prox.compact_kernel_info(16384, 1)
+    assert path["form"] == "one_launch" and path["elements"] == "rows4"
+    assert (path["cluster_ctas"], path["per_cta"]) == (16, 1024)
+    assert path["threads"] == 512 and path["local_bytes"] == 0, path
+    assert path["max_active_clusters"] >= 1
+    top = flexa_prox.compact_kernel_info(131_072, 1)
+    assert top["form"] == "one_launch" and top["cluster_ctas"] == 16
+    assert top["max_active_clusters"] >= 1
+    assert flexa_prox.compact_kernel_info(131_073, 1)["form"] == "grid"
+    assert flexa_prox.compact_kernel_info(65536, 5000)["form"] == "grid"
+
+
+@pytest.mark.cuda
+def test_compact_best_response_one_cluster_form_has_no_atomics(cuda):
+    """The one-cluster form's SASS (every instantiation) holds no global
+    atomic, reduction or memory fence; the grid form's ticket does."""
+    counts = build.sass_counts("compact_rows", opcodes=(
+        "ATOMG", "RED", "REDG", "MEMBAR"))
+    one = {k: v for k, v in counts.items() if "compact_br_clusterI" in k}
+    grid = {k: v for k, v in counts.items()
+            if "compact_br_wideI" in k or "compact_br_narrowI" in k}
+    assert len(one) == 8 and len(grid) == 12, sorted(counts)
+    assert not any(any(v.values()) for v in one.values()), one
+    assert all(v["ATOMG"] for v in grid.values()), grid
+    scatter = {k: v for k, v in counts.items() if "scatter_" in k}
+    assert len(scatter) == 10 and not any(
+        any(v.values()) for v in scatter.values()), scatter
+
+
+#: (N, K, C, base dtype, offset) of the scatter sweep: the path's 65536
+#: values into (100000, 1) fp32, a ragged N, a view one element into its
+#: storage, a bf16 base and C > 1 (the last three one row per thread).
+SCATTER_CASES = [(100_000, 65536, 1, "float32", 0),
+                 (100_003, 65536, 1, "float32", 0),
+                 (100_000, 65536, 1, "float32", 1),
+                 (100_000, 65536, 1, "bfloat16", 0),
+                 (2000, 700, 3, "float32", 0)]
+
+
+def _device_kernels(fn, path):
+    """(name, grid) of each device kernel ``fn()`` launches, from a
+    ``torch.profiler`` trace written to ``path``."""
+    import time
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(1.0)                  # records inside the window
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(1.0)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return [(e["name"], tuple(e["args"]["grid"])) for e in events
+            if e.get("cat") == "kernel"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,K,C,dtype,offset", SCATTER_CASES, ids=str)
+def test_scatter_rows_kernel_matches_plain_version(cuda, tmp_path, N, K, C,
+                                                   dtype, offset):
+    """scatter_rows bitwise equal to its plain version, in the form and on
+    the grid the launcher picks (4 rows a thread on ⌈N / 1024⌉ blocks for
+    aligned fp32 (N, 1) only, one row a thread on ⌈N / 256⌉ otherwise); a
+    second launch gives the same bits."""
+    _, inv = _plan_arrays(N, K, seed=N + offset, cap=K)
+    inv = torch.from_numpy(inv).to(cuda)
+    vals = _src(K, C, "float32", seed=K).to(cuda)
+    buf = _src(N * C + offset, 1, dtype, seed=N).to(cuda).reshape(-1)
+    base = buf[offset:].view(N, C)
+    n0 = flexa_prox.scatter_rows.launches
+    out = flexa_prox.scatter_rows(vals, inv, base)
+    torch.cuda.synchronize()
+    assert flexa_prox.scatter_rows.launches == n0 + 1
+    assert torch.equal(out, flexa_prox.scatter_rows.plain(vals, inv, base))
+    assert torch.equal(flexa_prox.scatter_rows(vals, inv, base), out)
+    fast = C == 1 and dtype == "float32" and offset == 0
+    rows = 4 * 256 if fast else 256
+    want = ("scatter_rows4" if fast else "scatter_narrow",
+            (-(-N // rows), 1, 1))
+    kernels = _device_kernels(
+        lambda: flexa_prox.scatter_rows(vals, inv, base), tmp_path / "t.json")
+    assert len(kernels) == 1 and want[0] in kernels[0][0], kernels
+    assert kernels[0][1] == want[1], kernels
+
+
+@pytest.mark.cuda
+def test_redesigned_kernels_are_one_device_record_per_call(cuda):
+    """Under ``torch.profiler``, 10 calls of compact_best_response at the
+    path's state shape and 10 of scatter_rows at the path's (100000, 1)
+    give 10 device records each: the one-cluster kernel and the 4-row
+    scatter, no memset and no second kernel."""
+    import time
+    from torch.profiler import ProfilerActivity, profile
+
+    x, g, d, idx = cbr_inputs(100_000, 9286, 16384, 1, torch.float32, True,
+                              seed=9, device=cuda)
+    _, inv = _plan_arrays(100_000, 65536, seed=9, cap=65536)
+    inv = torch.from_numpy(inv).to(cuda)
+    vals = _src(65536, 1, "float32", seed=1).to(cuda)
+    base = _src(100_000, 1, "float32", seed=2).to(cuda)
+    flexa_prox.compact_best_response(x, g, d, 0.3, idx)
+    flexa_prox.scatter_rows(vals, inv, base)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(1.0)                  # records inside the window
+        for _ in range(10):
+            flexa_prox.compact_best_response(x, g, d, 0.3, idx)
+            flexa_prox.scatter_rows(vals, inv, base)
+        torch.cuda.synchronize()
+        time.sleep(1.0)
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    assert sum("compact_br_cluster" in n for n in names) == 10, names
+    assert sum("scatter_rows4" in n for n in names) == 10, names
+    assert len(names) == 20, names
 
 
 @pytest.mark.cuda
