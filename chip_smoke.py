@@ -15,7 +15,8 @@ each failing the run when its check fails:
                registers, local (spill) bytes, static and dynamic shared
                memory and blocks per SM of ``flash_attention`` (bf16 at D
                80 and 128, fp32), of each of ``ssd_scan``'s three passes
-               (bf16 and fp32 at mamba2-1.3b's width), clusters of
+               (bf16 and fp32 at mamba2-1.3b's width, and at
+               zamba2-1.2b's N 64), clusters of
                ``gauss_seidel_sweep`` at fig1d's m, and of
                ``batched_best_response`` at (1, 100000) and (8, 100000)
                (registers, cluster size, elements per CTA, clusters the
@@ -36,7 +37,8 @@ each failing the run when its check fails:
                path's padded bucket, ragged C, all-padding, K = 1,
                bf16/fp16 sources, and a scatter at a ragged n and on a
                view one element into its storage; ``ssd_scan`` at the reduced and the full
-               mamba2-1.3b width, ragged S, strided views of an xBC
+               mamba2-1.3b width, zamba2-1.2b's (4 × 4096, N 64),
+               ragged S, strided views of an xBC
                buffer, fp32 and bf16, and the decay-overflow case, within
                1e-4 × max |y| (bf16: 2 ulps per element plus that), finite
                and bitwise repeatable.
@@ -126,6 +128,24 @@ each failing the run when its check fails:
                4, D 128) at full width, 2 prompts of 2048 and 8 new
                tokens: 32 launches by counter, finite logits, the fp32
                greedy check.
+8b. serve_families — slice 11's main path: full-width zamba2-1.2b (38
+               Mamba2 layers and one shared attention block after each 6,
+               random weights from a seeded generator) through
+               ``ServeEngine.generate``, 4 prompts of 4096 tokens and 32
+               new tokens, greedy: ``ssd_scan`` 38 and ``flash_attention``
+               6 launches per prefill, by counter and by profiler, and the
+               measurements and greedy checks of ``serve``.  Then, at
+               full width with their depth cut (``SERVE_FAMILIES``),
+               qwen3-moe-30b-a3b (12 of 48 layers) and phi3-medium-14b
+               (20 of 40) at 2 × 2048 + 8, deepseek-67b and
+               moonshot-v1-16b-a3b (4 layers each) at 1 × 1024 + 4:
+               ``flash_attention`` once per layer run, by counter and by
+               profiler, finite logits, the fp32 greedy check, peak
+               memory; the MoE runs print the share of (token, choice)
+               pairs dropped at capacity factor 1.25 and hold the fp32
+               check at capacity factor E / k, where nothing drops.  One
+               line per run, with its depth and the full depth, and its
+               seconds.
 9. train    — slice 3's main path: full-width stablelm-3b (32 layers,
                random weights from a seeded generator) through
                ``TrainLoop.run``, FLEXA with the default settings, bf16
@@ -152,8 +172,9 @@ fp32 and bf16 x and g.  z must equal the plain z bit for bit, e2 agree
 within 1e-5 relative, and a second launch give the same bits.  And
 ``flash_attention``: MHA (32/32 heads, D 80), GQA (32/4, D 128) and MQA
 (8/1, D 64), causal and not, Sq = Skv, the end-aligned Sq < Skv, Sq = 1,
-ragged Skv (4133), and the stablelm-3b and yi-6b prefills at full size
-(4 × 4096); fp32 within 2e-5 and bf16 within 2 bf16 ulps per element
+ragged Skv (4133), and the stablelm-3b, yi-6b and zamba2-1.2b (32/32,
+D 64) prefills at full size (4 × 4096), phi3-medium-14b's (2 × 2048, 40
+heads over 10, D 128) and deepseek-67b's (1 × 1024, 64 over 8); fp32 within 2e-5 and bf16 within 2 bf16 ulps per element
 plus 2e-5, finite, a second launch bitwise, and a causal call with
 Sq > Skv refused.  And ``apply_update``, ``batched_best_response`` and
 ``batched_apply_update``: sizes 1, 1000, (8, 100000), (50304, 2560) and a
@@ -242,6 +263,23 @@ CALL_MARKS = {"ssd_scan": "ssd_chunk_out"}
 SERVE = dict(arch="mamba2-1.3b", batch=4, prompt=4096, new=32, seed=0)
 SERVE_DENSE = dict(arch="stablelm-3b", batch=4, prompt=4096, new=32, seed=0)
 SERVE_GQA = dict(arch="yi-6b", batch=2, prompt=2048, new=8, seed=0)
+#: This slice's runs (``serve_families``): zamba2-1.2b whole, the main
+#: path; the others with their depth cut to what one card holds beside
+#: fp32 master weights and their bf16 casts (≈ 6 bytes a parameter):
+#: qwen3-moe-30b-a3b 12 of 48 layers (≈ 8.1 B parameters), phi3-medium-14b
+#: 20 of 40 (≈ 7.9 B), and deepseek-67b and moonshot-v1-16b-a3b 4 layers
+#: each, witnesses of their shapes.
+SERVE_FAMILIES = [
+    dict(arch="zamba2-1.2b", batch=4, prompt=4096, new=32, seed=0,
+         profile="full"),
+    dict(arch="qwen3-moe-30b-a3b", layers=12, batch=2, prompt=2048, new=8,
+         seed=0, profile="prefill"),
+    dict(arch="phi3-medium-14b", layers=20, batch=2, prompt=2048, new=8,
+         seed=0, profile="prefill"),
+    dict(arch="deepseek-67b", layers=4, batch=1, prompt=1024, new=4, seed=0,
+         profile="prefill"),
+    dict(arch="moonshot-v1-16b-a3b", layers=4, batch=1, prompt=1024, new=4,
+         seed=0, profile="prefill")]
 TRAIN = dict(arch="stablelm-3b", batch=2, seq=4096, steps=6)
 DESCENT = dict(arch="stablelm-3b", batch=4, seq=64, steps=30)
 #: Shapes of the best_response sweep: 1, ragged 1000, the layer tensors
@@ -268,6 +306,7 @@ SSD_REDUCED = (2, 64, 3, 16, 8, 16)
 SSD_FULL = [(1, 256, 64, 64, 128, 256), (4, 4096, 64, 64, 128, 256),
             (4, 4133, 64, 64, 128, 256)]
 SSD_32K = (1, 32768, 64, 64, 128, 256)       # a prefill_32k sequence
+SSD_ZAMBA = (4, 4096, 64, 64, 64, 256)       # zamba2-1.2b's prefill, N 64
 #: (B, Hq, Hkv, Sq, Skv, D, causal) of the flash_attention sweep: MHA
 #: (stablelm-3b, 32/32, D 80), GQA (yi-6b, 32/4, D 128), MQA (8/1, D 64);
 #: causal and not; Sq = Skv, the end-aligned Sq < Skv, Sq = 1, ragged
@@ -316,6 +355,12 @@ GS_SWEEP_XTOL = 1e-5
 #: where x stays small enough for an absolute 1e-5.
 GS_CHECK = (500, 2000, 3)
 FA_YI = (4, 32, 4, 4096, 4096, 128, True)
+#: The new serve paths' prefills: zamba2-1.2b's shared attention (32/32
+#: heads, D 64), phi3-medium-14b's GQA (40 heads over 10, D 128) and
+#: deepseek-67b's (64 over 8).
+FA_ZAMBA = (4, 32, 32, 4096, 4096, 64, True)
+FA_PHI3 = (2, 40, 10, 2048, 2048, 128, True)
+FA_DEEPSEEK = (1, 64, 8, 1024, 1024, 128, True)
 
 
 class PhaseError(Exception):
@@ -496,6 +541,10 @@ def phase_hopper(torch, build, fp, fa, gs, ssd):
         for pass_ in ssd.PASSES:
             info[f"ssd_scan {str(dt).split('.')[-1]} {pass_}"] = \
                 ssd.kernel_info(dt, pass_, N, P, chunk)
+            # zamba2-1.2b's state size
+            info[f"ssd_scan {str(dt).split('.')[-1]} {pass_} "
+                 f"N={SSD_ZAMBA[4]}"] = ssd.kernel_info(
+                     dt, pass_, SSD_ZAMBA[4], P, chunk)
     info[f"gauss_seidel_sweep m={FIG1D['m']}"] = gs.kernel_info(FIG1D["m"])
     for B in (1, 8):
         info[f"batched_best_response n={FIG1D['n']} B={B}"] = \
@@ -644,7 +693,7 @@ def ssd_sweep(torch, ssd, dev):
     """ssd_scan against its plain version over the sweep; every launch
     repeated once, bitwise."""
     cases = []
-    for shape in [SSD_REDUCED] + SSD_FULL:
+    for shape in [SSD_REDUCED] + SSD_FULL + [SSD_ZAMBA]:
         for strided in ((False, True) if shape[1] <= 256 else (True,)):
             cases.append((shape, strided, False))
     cases.append(((1, 512, 64, 64, 128, 256), True, True))    # overflow
@@ -694,7 +743,7 @@ def fa_sweep(torch, fa, dev):
     bf16 ulps of each element plus that; finite, and a second launch
     bitwise.  A causal call with Sq > Skv must raise."""
     err = {"float32": 0.0, "bfloat16": 0.0}
-    cases = FA_SWEEP + [FA_STABLELM, FA_YI]
+    cases = FA_SWEEP + [FA_STABLELM, FA_YI, FA_ZAMBA, FA_PHI3, FA_DEEPSEEK]
     for i, shape in enumerate(cases):
         causal = shape[-1]
         for name in err:
@@ -1697,25 +1746,49 @@ def phase_cv(torch, fp, dev):
     torch.cuda.empty_cache()
 
 
-def serve_run(torch, spec, wrapper, kname, dev, profile=True):
+def prefill_launches(cfg):
+    """Launches of each kernel in one prefill of ``cfg``: ``ssd_scan`` once
+    per Mamba2 layer, ``flash_attention`` once per attention (the hybrid's
+    shared block once per group of ``attn_every`` layers)."""
+    if cfg.family == "ssm":
+        return {"ssd_scan": cfg.num_layers}
+    if cfg.family == "hybrid":
+        return {"ssd_scan": cfg.num_layers,
+                "flash_attention": cfg.num_layers // cfg.attn_every}
+    return {"flash_attention": cfg.num_layers}
+
+
+def serve_run(torch, spec, wrappers, dev, profile="full"):
     """One LM's main serving path: ``ServeEngine.generate`` of ``spec``'s
-    arch at full width (its batch, prompt length and new tokens) with
-    random weights from a seeded generator, greedy.  ``wrapper`` is
-    the kernel the prefill launches once per layer, ``kname`` its name in
-    ``KERNEL_NAMES``.  With ``profile``, the prefill alone and the prefill
-    with 8 decode steps run under ``torch.profiler`` first, and the
-    kernel's profiler launches must equal its counter's and the layer
-    count; the device time of each of its device kernels is printed.  Then the main run, its counter set to 0 just before and read
-    just after (one launch per layer), and the first 4 tokens against full
-    ``forward``s teacher-forced on the engine's tokens: the gaps to the max
-    logit printed in the activation dtype and, with the same weights in
-    fp32, each within 1e-4.  Returns the phase's fields."""
+    arch at full width (its batch, prompt length and new tokens; depth
+    cut to ``spec["layers"]`` where given) with random weights from a
+    seeded generator, greedy.  ``wrappers`` maps kernel names (those of
+    ``KERNEL_NAMES``) to wrappers; each kernel of ``prefill_launches(cfg)``
+    must launch that many times a prefill.  With ``profile``
+    (``"full"`` or ``"prefill"``), the prefill alone runs under
+    ``torch.profiler`` first, and each kernel's profiler launches must
+    equal its counter's and that count; the device time of each of its
+    device kernels is printed; ``"full"`` adds the prefill with 8 decode
+    steps under the profiler.  Then the main run, the counters set to 0
+    just before and read just after, and the first 4 tokens against full
+    ``forward``s teacher-forced on the engine's tokens: the gaps to the
+    max logit printed in the activation dtype and, with the same weights
+    in fp32, each within 1e-4.  For ``moe`` the main run prints the share
+    of (token, choice) pairs dropped at the config's capacity factor, and
+    the fp32 check routes at capacity factor E / k, where nothing drops
+    (a drop depends on the count of tokens routed together, so a
+    teacher-forced forward drops other pairs than the engine's prefill).
+    Returns the phase's fields."""
     from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe as MOE
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = get_config(spec["arch"])
+    full = get_config(spec["arch"])
+    cfg = full.replace(num_layers=spec.get("layers", full.num_layers))
     arch, nb, lp, new = cfg.name, spec["batch"], spec["prompt"], spec["new"]
+    want = prefill_launches(cfg)
+    kernels = {k: wrappers[k] for k in want}
     t = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(spec["seed"])
     model = T.init_params(cfg, generator=gen, device=dev)
@@ -1724,33 +1797,54 @@ def serve_run(torch, spec, wrapper, kname, dev, profile=True):
     eng = ServeEngine(cfg, model, max_len=lp + new, device=dev)
     prompts = np.random.default_rng(spec["seed"]).integers(
         0, cfg.vocab_size, (nb, lp)).astype(np.int32)
-    # warm-up: cuBLAS handles, the weight casts, the kernel's first launch
+    # warm-up: cuBLAS handles, the weight casts, the kernels' first launch
     eng.generate(prompts[:, :512], max_new_tokens=2)
-    out = {"arch": arch, "layers": cfg.num_layers, "batch": nb,
-           "prompt": lp, "new_tokens": new, "dtype": cfg.dtype,
+    out = {"arch": arch, "layers": cfg.num_layers,
+           "layers_of": full.num_layers, "batch": nb, "prompt": lp,
+           "new_tokens": new, "dtype": cfg.dtype,
            "init_s": round(init_s, 3)}
+
+    def zero():
+        for wrapper in kernels.values():
+            wrapper.launches = 0
+
     if profile:
         # the prefill alone (generate of one token), under the profiler
-        wrapper.launches = 0
+        zero()
         torch.cuda.synchronize()
         with profiled(torch) as prof:
             t = time.perf_counter()
             eng.generate(prompts, max_new_tokens=1)
             torch.cuda.synchronize()
             prof_prefill_s = time.perf_counter() - t
-        prof_launches = wrapper.launches
+        prof_launches = {k: w.launches for k, w in kernels.items()}
         per_kernel, busy = device_kernels(torch, prof, {
-            kname: KERNEL_NAMES[kname]})
-        # each of the wrapper's device kernels: [records, summed ms]
+            k: KERNEL_NAMES[k] for k in kernels})
+        # each of the wrappers' device kernels: [records, summed ms]
         by_kernel, _ = device_kernels(torch, prof, {
-            sub: (sub,) for sub in KERNEL_NAMES[kname]})
+            sub: (sub,) for k in kernels for sub in KERNEL_NAMES[k]})
         edges, _ = window_edges(torch, prof)
         del prof
-        check(per_kernel[kname][0] == cfg.num_layers == prof_launches,
-              f"{kname} launches in the prefill: profiler "
-              f"{per_kernel[kname][0]}, counter {prof_launches}, want "
-              f"{cfg.num_layers} (records by kernel {by_kernel}; the "
-              f"records' edges inside the window, ms: {edges})")
+        for kname, n in want.items():
+            check(per_kernel[kname][0] == n == prof_launches[kname],
+                  f"{kname} launches in the {arch} prefill: profiler "
+                  f"{per_kernel[kname][0]}, counter {prof_launches[kname]}, "
+                  f"want {n} (records by kernel {by_kernel}; the records' "
+                  f"edges inside the window, ms: {edges})")
+            kernel_ms = per_kernel[kname][1]
+            out.update({
+                f"{kname}_profiler_launches": per_kernel[kname][0],
+                f"{kname}_device_ms": round(kernel_ms, 3),
+                f"{kname}_device_ms_by_kernel": {
+                    sub: [by_kernel[sub][0], round(by_kernel[sub][1], 3)]
+                    for sub in KERNEL_NAMES[kname]},
+                f"{kname}_share_of_prefill":
+                    kernel_ms / (prof_prefill_s * 1e3)})
+        out.update({
+            "profiled_prefill_ms": round(prof_prefill_s * 1e3, 3),
+            "prefill_device_busy_ms": round(busy[1], 3),
+            "prefill_device_busy_share": busy[1] / (prof_prefill_s * 1e3)})
+    if profile == "full":
         # prefill + 8 decode steps under the profiler: device busy in decode
         with profiled(torch) as prof:
             t = time.perf_counter()
@@ -1759,17 +1853,7 @@ def serve_run(torch, spec, wrapper, kname, dev, profile=True):
             prof_decode_s = time.perf_counter() - t - prof_prefill_s
         _, busy9 = device_kernels(torch, prof, {})
         del prof
-        kernel_ms = per_kernel[kname][1]
         out.update({
-            "profiled_prefill_ms": round(prof_prefill_s * 1e3, 3),
-            f"{kname}_profiler_launches": per_kernel[kname][0],
-            f"{kname}_device_ms": round(kernel_ms, 3),
-            f"{kname}_device_ms_by_kernel": {
-                k: [n_rec, round(ms, 3)] for k, (n_rec, ms) in
-                by_kernel.items()},
-            f"{kname}_share_of_prefill": kernel_ms / (prof_prefill_s * 1e3),
-            "prefill_device_busy_ms": round(busy[1], 3),
-            "prefill_device_busy_share": busy[1] / (prof_prefill_s * 1e3),
             # (device busy ms, wall ms) of 8 profiled decode steps, minus
             # the profiled prefill's
             "decode_device_busy_share":
@@ -1783,32 +1867,54 @@ def serve_run(torch, spec, wrapper, kname, dev, profile=True):
     prefill_s = time.perf_counter() - t
 
     # the main run
+    moes = [blk.moe for blk in model.layers] if cfg.family == "moe" else []
+    for moe in moes:
+        moe.drop_log = []
     torch.cuda.reset_peak_memory_stats()
-    wrapper.launches = 0
+    zero()
     torch.cuda.synchronize()
     t = time.perf_counter()
     res = eng.generate(prompts, max_new_tokens=new)
     wall = time.perf_counter() - t
-    launches = wrapper.launches
+    launches = {k: w.launches for k, w in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
-    check(launches == cfg.num_layers, f"{kname} launched {launches} times "
-          f"on the {arch} serve path, want {cfg.num_layers}")
+    check(launches == want, f"launches on the {arch} serve path: "
+          f"{launches}, want {want}")
     check(res.tokens.shape == (nb, new) and bool(
         ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
         f"generated tokens {res.tokens.shape}")
     check(bool(np.isfinite(res.prefill_logits).all()),
           "non-finite prefill logits")
+    if moes:
+        check(all(len(m.drop_log) == new for m in moes),
+              f"MoE calls per layer {[len(m.drop_log) for m in moes]}, "
+              f"want {new}")
+        # each layer's first call is the prefill's, the others decode's
+        pre = [m.drop_log[0] for m in moes]
+        dec = [c for m in moes for c in m.drop_log[1:]]
+        share = [sum(int(d) for d, _ in calls) / sum(n for _, n in calls)
+                 for calls in (pre, dec)]
+        for moe in moes:
+            moe.drop_log = None
+        out.update({"capacity_factor": cfg.capacity_factor,
+                    "capacity_prefill": MOE.capacity(nb * lp, cfg),
+                    "dropped_share_prefill": share[0],
+                    "dropped_share_decode": share[1]})
 
     # the first tokens against full forwards, teacher-forced: reported
     # in bf16, checked in fp32 (same weights, fp32 activations)
     gaps = {"bfloat16": greedy_gaps(torch, T, cfg, model, prompts,
                                     res.tokens, dev)}
     cfg32 = cfg.replace(dtype="float32")
+    if cfg.family == "moe":
+        cfg32 = cfg32.replace(
+            capacity_factor=cfg.num_experts / cfg.moe_top_k)
+        out["fp32_check_capacity_factor"] = cfg32.capacity_factor
     eng32 = ServeEngine(cfg32, model, max_len=lp + new, device=dev)
-    wrapper.launches = 0
+    zero()
     res32 = eng32.generate(prompts, max_new_tokens=4)
-    check(wrapper.launches == cfg.num_layers, f"fp32 prefill launched "
-          f"{kname} {wrapper.launches} times")
+    launches32 = {k: w.launches for k, w in kernels.items()}
+    check(launches32 == want, f"the fp32 prefill launched {launches32}")
     gaps["float32"] = greedy_gaps(torch, T, cfg32, model, prompts,
                                   res32.tokens, dev)
     check(max(gaps["float32"]) <= 1e-4, f"{arch} fp32: an engine token is "
@@ -1822,7 +1928,7 @@ def serve_run(torch, spec, wrapper, kname, dev, profile=True):
         "decode_tokens_per_s": round(nb / decode_ms * 1e3, 3),
         "prefill_tokens_per_s": round(nb * lp / prefill_s, 1),
         "peak_memory_gib": round(peak / 2 ** 30, 3),
-        "launches": {kname: launches},
+        "launches": launches,
         # per step, the largest (max logit − engine token's logit) of a
         # full forward teacher-forced on the engine's tokens
         "max_logit_gap_first_4": gaps,
@@ -1836,7 +1942,7 @@ def phase_serve(torch, ssd, dev):
     """Slice 2's main path: full-width mamba2-1.3b through
     ``ServeEngine.generate`` (batch 4 × prompt 4096, 32 new tokens,
     greedy)."""
-    out = serve_run(torch, SERVE, ssd.ssd_scan, "ssd_scan", dev)
+    out = serve_run(torch, SERVE, {"ssd_scan": ssd.ssd_scan}, dev)
     say("serve", **out)
     return out["launches"]["ssd_scan"]
 
@@ -1846,13 +1952,33 @@ def phase_serve_dense(torch, fa, dev):
     ``ServeEngine.generate`` (batch 4 × prompt 4096, 32 new tokens,
     greedy), ``flash_attention`` once per layer in the prefill; then
     yi-6b (GQA) at full width, batch 2 × 2048, 8 new tokens."""
-    out = serve_run(torch, SERVE_DENSE, fa.flash_attention,
-                    "flash_attention", dev)
+    out = serve_run(torch, SERVE_DENSE, {"flash_attention":
+                                         fa.flash_attention}, dev)
     launches = out["launches"]["flash_attention"]
     say("serve_dense", **out)
-    out = serve_run(torch, SERVE_GQA, fa.flash_attention, "flash_attention",
-                    dev, profile=False)
+    out = serve_run(torch, SERVE_GQA, {"flash_attention":
+                                       fa.flash_attention}, dev,
+                    profile=None)
     say("serve_dense", **out)
+    return launches
+
+
+def phase_serve_families(torch, ssd, fa, dev):
+    """This slice's main path and its witnesses: ``serve_run`` of each
+    ``SERVE_FAMILIES`` run, one line each with its seconds, the model
+    deleted and the cache emptied between runs (``serve_run`` does both).  zamba2-1.2b (the main
+    path, profiled in full) launches ``ssd_scan`` 38 and
+    ``flash_attention`` 6 times a prefill; the others ``flash_attention``
+    once per layer run.  Returns {run: launches}."""
+    wrappers = {"ssd_scan": ssd.ssd_scan, "flash_attention":
+                fa.flash_attention}
+    launches = {}
+    for spec in SERVE_FAMILIES:
+        t = time.perf_counter()
+        out = serve_run(torch, spec, wrappers, dev, profile=spec["profile"])
+        out["run_s"] = round(time.perf_counter() - t, 2)
+        say("serve_families", **out)
+        launches[spec["arch"]] = out["launches"]
     return launches
 
 
@@ -2125,7 +2251,7 @@ def br_row(torch, fp, launches, err, dev):
 
 
 def kernel_line(torch, fp, ssd, fa, r, launches, serve_launches, err,
-                cbr_state, gs_sweep, dev):
+                cbr_state, gs_sweep, family_launches, dev):
     """Each kernel timed at the path's largest shapes: the gather of Aᵀ
     at the widest bucket K (a full bucket, so ``index_select`` computes
     the same function), and the scatter of K values into (n, 1).
@@ -2186,11 +2312,22 @@ def kernel_line(torch, fp, ssd, fa, r, launches, serve_launches, err,
                      **({"one_row_ms": round(t["one_row_ms"], 5)}
                         if "one_row_ms" in t else {}),
                      "shape": shape})
-    rows.append(ssd_row(torch, ssd, serve_launches, err["ssd_scan"], dev))
+    # each kernel's launches per prefill on every serve path that runs it
+    by_path = {name: {f"serve {SERVE['arch']}": serve_launches}
+               if name == "ssd_scan" else
+               {f"serve_dense {SERVE_DENSE['arch']}":
+                launches["flash_attention"]}
+               for name in ("ssd_scan", "flash_attention")}
+    for arch, n in family_launches.items():
+        for name, count in n.items():
+            by_path[name][f"serve_families {arch}"] = count
+    rows.append(ssd_row(torch, ssd, serve_launches, err["ssd_scan"],
+                        by_path["ssd_scan"], dev))
     rows.append(br_row(torch, fp, launches["best_response"],
                        err["best_response"], dev))
     rows.append(fa_row(torch, fa, launches["flash_attention"],
-                       err["flash_attention"], dev))
+                       err["flash_attention"], by_path["flash_attention"],
+                       dev))
     rows += update_rows(torch, fp, launches, err, floor, dev)
     rows.append(cbr_row(torch, fp, err["compact_best_response"], cbr_state,
                         floor, dev))
@@ -2377,10 +2514,12 @@ def fa_work(shape, itemsize):
     return flops, flops, nbytes
 
 
-def fa_row(torch, fa, launches, err, dev):
+def fa_row(torch, fa, launches, err, by_path, dev):
     """flash_attention at the stablelm-3b prefill's per-layer shape (4 × 32
-    heads × 4096, D 80, bf16, causal) and at yi-6b's (32 heads over 4, D
-    128), q, k, v laid out as the prefill passes them.  Times from CUDA
+    heads × 4096, D 80, bf16, causal), at yi-6b's (32 heads over 4, D
+    128), zamba2-1.2b's (32/32, D 64), phi3-medium-14b's (2 × 2048, 40
+    over 10, D 128) and deepseek-67b's (1 × 1024, 64 over 8), q, k, v laid
+    out as the prefill passes them.  Times from CUDA
     events around back-to-back eager launches (a launch takes
     milliseconds).  The library call is ``scaled_dot_product_attention``
     on fp32 copies with ``is_causal`` (the same fp32 function; timed here
@@ -2396,7 +2535,10 @@ def fa_row(torch, fa, launches, err, dev):
     bytes' time and the lesser of the two operation bounds."""
     F = torch.nn.functional
     timed = {}
-    for key, shape in (("stablelm-3b", FA_STABLELM), ("yi-6b", FA_YI)):
+    for key, shape in (("stablelm-3b", FA_STABLELM), ("yi-6b", FA_YI),
+                       ("zamba2-1.2b", FA_ZAMBA),
+                       ("phi3-medium-14b", FA_PHI3),
+                       ("deepseek-67b", FA_DEEPSEEK)):
         q, k, v = fa_inputs(torch, shape, torch.bfloat16, 41, dev,
                             model_layout=True)
         qk, pv, nbytes = fa_work(shape, 2)
@@ -2427,7 +2569,8 @@ def fa_row(torch, fa, launches, err, dev):
     return {"name": "flash_attention", "route": "cuda",
             "source": SOURCES["flash_attention"],
             "replaces": REPLACES["flash_attention"],
-            "launches": launches, "max_abs_err": err,
+            "launches": launches, "launches_by_path": by_path,
+            "max_abs_err": err,
             "ms": round(t["ms"], 5), "plain_ms": round(t["plain_ms"], 5),
             "bound_ms": round(t["bound_ms"], 5), "bound_by": t["bound_by"],
             "library_ms": round(t["library_ms"], 5),
@@ -2444,10 +2587,10 @@ def fa_row(torch, fa, launches, err, dev):
                       for kk, vv in timed.items()}}
 
 
-def ssd_row(torch, ssd, launches, err, dev):
+def ssd_row(torch, ssd, launches, err, by_path, dev):
     """ssd_scan at the serve path's per-layer shape (4 × 4096, bf16, x/B/C
-    strided as the mixer passes them) and at a prefill_32k sequence
-    (1 × 32768).  Times from CUDA events around back-to-back eager
+    strided as the mixer passes them), at a prefill_32k sequence
+    (1 × 32768) and at zamba2-1.2b's prefill (4 × 4096, N 64).  Times from CUDA events around back-to-back eager
     launches (a launch takes milliseconds, so host overhead is noise).
 
     The bound by operations is the least time the card needs for this
@@ -2459,7 +2602,8 @@ def ssd_row(torch, ssd, launches, err, dev):
     kernel's bound) stand beside it; ``bound_ms`` is the larger of the
     bytes' time and the lesser of the two operation bounds."""
     timed = {}
-    for key, shape in (("serve", SSD_FULL[1]), ("prefill_32k", SSD_32K)):
+    for key, shape in (("serve", SSD_FULL[1]), ("prefill_32k", SSD_32K),
+                       ("zamba2-1.2b", SSD_ZAMBA)):
         args = ssd_inputs(torch, shape, torch.bfloat16, seed=21, dev=dev)
         g_flops, rest_flops, nbytes = ssd_work(shape, 2)
         flops = g_flops + rest_flops
@@ -2483,7 +2627,8 @@ def ssd_row(torch, ssd, launches, err, dev):
     t = timed["serve"]
     return {"name": "ssd_scan", "route": "cuda",
             "source": SOURCES["ssd_scan"], "replaces": REPLACES["ssd_scan"],
-            "launches": launches, "max_abs_err": err,
+            "launches": launches, "launches_by_path": by_path,
+            "max_abs_err": err,
             "ms": round(t["ms"], 5), "plain_ms": round(t["plain_ms"], 5),
             "bound_ms": round(t["bound_ms"], 5), "bound_by": t["bound_by"],
             # no single PyTorch call computes the SSD scan
@@ -2551,6 +2696,8 @@ def main() -> int:
         serve_launches = phase_serve(torch, ssd, dev)
         phase = "serve_dense"
         launches["flash_attention"] = phase_serve_dense(torch, fa, dev)
+        phase = "serve_families"
+        family_launches = phase_serve_families(torch, ssd, fa, dev)
         phase = "train"
         launches["best_response"], launches["apply_update"] = phase_train(
             torch, fp, dev)
@@ -2558,7 +2705,7 @@ def main() -> int:
         phase_descent(torch, dev)
         phase = "kernel timing"
         rows = kernel_line(torch, fp, ssd, fa, r, launches, serve_launches,
-                           err, cbr_state, gs_sweep, dev)
+                           err, cbr_state, gs_sweep, family_launches, dev)
     except Exception as exc:                          # report and fail
         print(f"FAIL {phase}: {type(exc).__name__}: {exc}", flush=True)
         raise

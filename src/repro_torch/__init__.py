@@ -4,8 +4,9 @@ The package mirrors ``repro`` (the JAX reference) module for module, e.g.
 ``repro_torch.core.flexa`` ↔ ``repro.core.flexa``, and never imports it
 or ``jax``.  Ported so far: the solo Lasso solve and the screened,
 compacted λ-path behind :class:`repro_torch.client.FlexaClient`'s
-``inline`` backend; serving of the ``ssm`` LM family
-(``repro_torch.serve``); training of the ``dense`` LM family with FLEXA
+``inline`` backend; serving of the ``dense``, ``ssm``, ``hybrid`` and
+``moe`` LM families (``repro_torch.serve``); training of the ``dense``
+LM family with FLEXA
 or AdamW (``repro_torch.train``).  Each TPU kernel on those paths is a
 hand-written CUDA kernel (``repro_torch.kernels``).
 

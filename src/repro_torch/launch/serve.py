@@ -5,10 +5,14 @@
     python -m repro_torch.launch.serve --arch stablelm-3b \\
         --batch 4 --prompt-len 4096 --new-tokens 32 --temperature 0
 
-``--arch`` takes the ported archs: ``mamba2-1.3b`` (ssm) and the dense
-``stablelm-3b`` and ``yi-6b``.  Runs on the card by default (``--device cuda``; raises where CUDA is
-missing); ``--device cpu --reduced`` serves the reduced config on the
-host.  Weights are random, drawn from ``--seed``.  Prints the tokens per
+``--arch`` takes the ported archs: the dense ``stablelm-3b``,
+``yi-6b``, ``phi3-medium-14b`` and ``deepseek-67b``, ``mamba2-1.3b``
+(ssm), ``zamba2-1.2b`` (hybrid), and the MoE ``qwen3-moe-30b-a3b`` and
+``moonshot-v1-16b-a3b``.  Runs on the card by default (``--device
+cuda``; raises where CUDA is missing); ``--device cpu --reduced`` serves
+the reduced config on the host.  At full width phi3-medium-14b, the two
+MoE archs and deepseek-67b need more than one 80 GB card (fp32 weights
+and their bf16 casts, ≈ 6 bytes a parameter).  Weights are random, drawn from ``--seed``.  Prints the tokens per
 second of the whole ``generate`` call (prefill included).  The
 reference's ``--mesh`` waits for the multi-device step.
 """

@@ -1,8 +1,9 @@
 """Model assembly, as ``repro.models.transformer``, for the ``dense``
-family (training and serving) and the ``ssm`` family (attention-free
-Mamba2, serving):
+family (training and serving) and the ``ssm`` (attention-free Mamba2),
+``hybrid`` (Zamba2) and ``moe`` families (serving):
 
-  init_params(cfg, generator=, device=)       → DenseLM | Mamba2LM
+  init_params(cfg, generator=, device=)       → DenseLM | Mamba2LM |
+                                                HybridLM | MoeLM
   model_from_arrays(cfg, arrays, device=)     → the same, from the
                                                 reference's parameter tree
   param_leaves(cfg, model)                    → the reference's leaves
@@ -22,13 +23,24 @@ Training (``dense``): parameters require grad, weights are cast to the
 activation dtype through autograd at each use, and with ``remat`` each
 layer runs under ``torch.utils.checkpoint`` as the reference's ``_rscan``
 wraps its body in ``jax.checkpoint``; attention is ``chunked_attention``.
-Serving (``dense`` and ``ssm``): the entry points run under
+Serving (every family): the entry points run under
 ``torch.inference_mode`` and cast weights through the cached
-``L.cast_param``.  Dense prefill runs each layer's attention through the
-``flash_attention`` kernel and returns the stacked KV cache (L, B, Hkv,
-S, dh); dense decode writes each new token's k and v into that cache in
-place.  Training ``ssm`` needs a backward of the ``ssd_scan`` kernel,
-which no package has yet.  Other families raise ``NotImplementedError``.
+``L.cast_param``.  Prefill runs each attention through the
+``flash_attention`` kernel and each SSD layer through ``ssd_scan``;
+decode writes each new token's k and v into the cache in place.
+
+* ``hybrid`` (Zamba2): Mamba2 layers and **one** shared attention + MLP
+  block (``shared``, a :class:`DenseBlock`), applied with the same
+  weights after each group of ``attn_every`` layers; the layers past the
+  last whole group have none after them.  Each application has its own
+  KV cache (``attn_k`` / ``attn_v``, one per group).
+* ``moe``: blocks of attention and a token-choice top-k MoE FFN
+  (:mod:`repro_torch.models.moe`); ``forward_hidden`` returns the sum of
+  the layers' aux losses, and the stacked KV cache is the dense one.
+
+Training ``ssm`` and ``hybrid`` needs a backward of the ``ssd_scan``
+kernel, which no package has yet; training ``moe`` is not ported yet.
+``vlm`` and ``encdec`` raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -43,18 +55,21 @@ from repro_torch.config.base import ModelConfig, ShapeConfig
 from repro_torch.models import attention as ATT
 from repro_torch.models import io as IO
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.io import act_dtype
 
-AUX_WEIGHT = 0.01  # MoE load-balance loss weight (0 · aux for dense)
-PORTED_FAMILIES = ("dense", "ssm")
+AUX_WEIGHT = 0.01  # MoE load-balance loss weight
+PORTED_FAMILIES = ("dense", "ssm", "hybrid", "moe")
+#: Families whose decode attends to a KV cache (and so needs ``pos``).
+ATTENTION_FAMILIES = ("dense", "hybrid", "moe")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not yet ported: ROADMAP Queue 1 "
-            "step 5b (the other LM families)")
+            "step 5b (the vlm and encdec families)")
 
 
 def _ones(n: int, device) -> nn.Parameter:
@@ -71,25 +86,34 @@ class SSMBlock(nn.Module):
         self.ssm = SSM.SSMMixer(cfg, device=device)
 
 
+def _tables(model: nn.Module, cfg: ModelConfig, device,
+            requires_grad: bool) -> None:
+    """The embedding table, the final norm and, when untied, ``lm_head``."""
+    def param(t):
+        return nn.Parameter(t, requires_grad=requires_grad)
+    shape = (cfg.vocab_size, cfg.d_model)
+    model.embed = param(torch.zeros(shape, dtype=torch.float32,
+                                    device=device))
+    model.final_norm = param(torch.ones(cfg.d_model, dtype=torch.float32,
+                                        device=device))
+    if not cfg.tie_embeddings:
+        model.lm_head = param(torch.zeros(shape, dtype=torch.float32,
+                                          device=device))
+
+
 class Mamba2LM(nn.Module):
     """Embedding table, ``layers`` (an ``nn.ModuleList`` of
     :class:`SSMBlock`), final norm and, when untied, ``lm_head``."""
 
+    family = "ssm"
+
     def __init__(self, cfg: ModelConfig, *, device):
         super().__init__()
         _require_ported(cfg)
-        if cfg.family != "ssm":
-            raise ValueError(f"Mamba2LM builds the ssm family, not "
-                             f"{cfg.family!r}")
-
-        def table():
-            return nn.Parameter(torch.zeros(
-                (cfg.vocab_size, cfg.d_model), dtype=torch.float32,
-                device=device), requires_grad=False)
-        self.embed = table()
-        self.final_norm = _ones(cfg.d_model, device)
-        if not cfg.tie_embeddings:
-            self.lm_head = table()
+        if cfg.family != self.family:
+            raise ValueError(f"{type(self).__name__} builds the "
+                             f"{self.family} family, not {cfg.family!r}")
+        _tables(self, cfg, device, requires_grad=False)
         self.layers = nn.ModuleList(SSMBlock(cfg, device=device)
                                     for _ in range(cfg.num_layers))
 
@@ -133,20 +157,59 @@ class DenseLM(nn.Module):
         if cfg.family != "dense":
             raise ValueError(f"DenseLM builds the dense family, not "
                              f"{cfg.family!r}")
-        self.embed = _weight(cfg.vocab_size, cfg.d_model, device=device)
-        self.final_norm = nn.Parameter(torch.ones(cfg.d_model,
-                                                  device=device))
-        if not cfg.tie_embeddings:
-            self.lm_head = _weight(cfg.vocab_size, cfg.d_model,
-                                   device=device)
+        _tables(self, cfg, device, requires_grad=True)
         self.layers = nn.ModuleList(DenseBlock(cfg, device=device)
                                     for _ in range(cfg.num_layers))
 
 
+class HybridLM(Mamba2LM):
+    """A :class:`Mamba2LM` plus ``shared``: the one :class:`DenseBlock`
+    applied after each group of ``attn_every`` layers (the reference's
+    ``params["shared"]``).  Serving only: no parameter requires grad."""
+
+    family = "hybrid"
+
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__(cfg, device=device)
+        self.shared = DenseBlock(cfg, device=device).requires_grad_(False)
+
+
+class MoEBlock(nn.Module):
+    """One pre-norm MoE decoder layer: ``ln1``, ``attn.{wq,wk,wv,wo}``,
+    ``ln2``, ``moe.{router,w1,w3,w2}`` (the reference's
+    ``_init_moe_layer`` tree)."""
+
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__()
+        self.ln1 = _ones(cfg.d_model, device)
+        self.attn = ATT.AttnParams(cfg, device=device)
+        self.ln2 = _ones(cfg.d_model, device)
+        self.moe = MOE.MoEParams(cfg, device=device)
+
+
+class MoeLM(nn.Module):
+    """Embedding table, ``layers`` (an ``nn.ModuleList`` of
+    :class:`MoEBlock`), final norm and, when untied, ``lm_head``.
+    Serving only: no parameter requires grad."""
+
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__()
+        if cfg.family != "moe":
+            raise ValueError(f"MoeLM builds the moe family, not "
+                             f"{cfg.family!r}")
+        _tables(self, cfg, device, requires_grad=False)
+        self.layers = nn.ModuleList(MoEBlock(cfg, device=device)
+                                    for _ in range(cfg.num_layers))
+        self.requires_grad_(False)
+
+
+_MODELS = {"dense": DenseLM, "ssm": Mamba2LM, "hybrid": HybridLM,
+           "moe": MoeLM}
+
+
 def _empty_model(cfg: ModelConfig, device) -> nn.Module:
     _require_ported(cfg)
-    return (DenseLM if cfg.family == "dense" else Mamba2LM)(
-        cfg, device=device)
+    return _MODELS[cfg.family](cfg, device=device)
 
 
 @torch.no_grad()
@@ -154,17 +217,23 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device) -> nn.Module:
     """A model with the reference's initial distributions (embed and
     lm_head N(0, 0.02²), norms 1, dense weights N(0, fan_in⁻¹), mixers
-    per ``init_ssm_params``), drawn from ``generator``, which lies on
-    ``device``."""
+    per ``init_ssm_params``, MoE weights per ``init_moe_params``), drawn
+    from ``generator``, which lies on ``device``."""
     model = _empty_model(cfg, device)
     model.embed.normal_(0.0, 0.02, generator=generator)
     if not cfg.tie_embeddings:
         model.lm_head.normal_(0.0, 0.02, generator=generator)
-    for blk in model.layers:
-        if cfg.family == "ssm":
+    blocks = list(model.layers)
+    if cfg.family == "hybrid":
+        blocks.append(model.shared)
+    for blk in blocks:
+        if isinstance(blk, SSMBlock):
             SSM.init_ssm_params(blk.ssm, generator=generator)
             continue
         ATT.init_attn_params(blk.attn, generator=generator)
+        if isinstance(blk, MoEBlock):
+            MOE.init_moe_params(blk.moe, generator=generator)
+            continue
         for name in ("w1", "w3", "w2"):
             w = getattr(blk.mlp, name)
             w.copy_(L.init_dense(tuple(w.shape), generator=generator,
@@ -188,8 +257,9 @@ def model_from_arrays(cfg: ModelConfig, arrays: dict, *, device
                       ) -> nn.Module:
     """A model holding the reference's parameter tree ``arrays`` (numpy,
     e.g. ``tree_map(np.asarray, T.init_params(cfg, key))``), whose layer
-    leaves are stacked on a leading axis of ``num_layers``.  Every leaf is
-    copied as it is; a missing, extra or misshapen leaf raises."""
+    leaves are stacked on a leading axis of ``num_layers`` (the hybrid's
+    ``shared`` block is not stacked).  Every leaf is copied as it is; a
+    missing, extra or misshapen leaf raises."""
     model = _empty_model(cfg, device)
 
     def put(param: nn.Parameter, value, name: str) -> None:
@@ -199,19 +269,27 @@ def model_from_arrays(cfg: ModelConfig, arrays: dict, *, device
                              f"{tuple(param.shape)}")
         param.copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
 
+    def subtree(name: str, block: nn.Module) -> dict:
+        tree = _flat_tree(arrays[name])
+        want = {tuple(n.split(".")) for n, _ in block.named_parameters()}
+        if set(tree) != want:
+            raise KeyError(f"{name} tree has {sorted(tree)}, the model "
+                           f"wants {sorted(want)}")
+        return tree
+
     top = {"embed", "final_norm", "layers"} | (
-        set() if cfg.tie_embeddings else {"lm_head"})
+        set() if cfg.tie_embeddings else {"lm_head"}) | (
+        {"shared"} if cfg.family == "hybrid" else set())
     if set(arrays) != top:
         raise KeyError(f"parameter tree has {sorted(arrays)}, the model "
                        f"wants {sorted(top)}")
-    for name in top - {"layers"}:
+    for name in top - {"layers", "shared"}:
         put(getattr(model, name), arrays[name], name)
-    layers = _flat_tree(arrays["layers"])
-    want = {tuple(n.split(".")) for n, _ in
-            model.layers[0].named_parameters()}
-    if set(layers) != want:
-        raise KeyError(f"layer tree has {sorted(layers)}, the model wants "
-                       f"{sorted(want)}")
+    if cfg.family == "hybrid":
+        shared = subtree("shared", model.shared)
+        for name, param in model.shared.named_parameters():
+            put(param, shared[tuple(name.split("."))], f"shared.{name}")
+    layers = subtree("layers", model.layers[0])
     for li, blk in enumerate(model.layers):
         for name, param in blk.named_parameters():
             put(param, layers[tuple(name.split("."))][li],
@@ -235,10 +313,14 @@ def param_leaves(cfg: ModelConfig, model: nn.Module) -> list[Leaf]:
     """The reference's parameter leaves in its ``tree_flatten`` order
     (dict keys sorted at every level): for stablelm-3b the 12 leaves
     embed, final_norm, layers/attn/{wk,wo,wq,wv}, layers/{ln1,ln2},
-    layers/mlp/{w1,w2,w3}, lm_head."""
+    layers/mlp/{w1,w2,w3}, lm_head; the hybrid's ``shared`` block gives
+    one unstacked leaf per tensor, after ``layers``."""
     _require_ported(cfg)
     leaves = [Leaf((name,), [p], False)
               for name, p in model.named_parameters(recurse=False)]
+    if cfg.family == "hybrid":
+        leaves += [Leaf(("shared",) + tuple(name.split(".")), [p], False)
+                   for name, p in model.shared.named_parameters()]
     per_layer = [dict(blk.named_parameters()) for blk in model.layers]
     for name in per_layer[0]:
         leaves.append(Leaf(("layers",) + tuple(name.split(".")),
@@ -270,37 +352,73 @@ def _dense_block(p: DenseBlock, h: torch.Tensor, positions: torch.Tensor,
                         p.mlp.w3, p.mlp.w2)
 
 
+def _moe_block(p: MoEBlock, h: torch.Tensor, positions: torch.Tensor,
+               cfg: ModelConfig):
+    a, _ = ATT.attention_layer(p.attn, L.rms_norm(h, p.ln1, cfg.norm_eps),
+                               positions, cfg)
+    h = h + a
+    y, aux = MOE.moe_layer(p.moe, L.rms_norm(h, p.ln2, cfg.norm_eps), cfg)
+    return h + y, aux
+
+
 def _ssm_block(p: SSMBlock, h: torch.Tensor, cfg: ModelConfig):
     return h + SSM.ssm_layer(p.ssm, L.rms_norm(h, p.ln1, cfg.norm_eps), cfg)
+
+
+def _shared_group(cfg: ModelConfig, li: int):
+    """The hybrid's group whose shared block follows layer ``li`` (the
+    index of its KV cache), or None: the block follows every
+    ``attn_every``-th layer, none follows the layers past the last whole
+    group (the reference's ``_hybrid_split``)."""
+    if cfg.family == "hybrid" and (li + 1) % cfg.attn_every == 0:
+        return li // cfg.attn_every
+    return None
 
 
 #: SSD layer that also returns its decode cache entry (the reference's name).
 _ssm_prefill_layer = SSM.ssm_prefill
 
 
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, device=device)[None, :].expand(B, S)
+
+
 @torch.inference_mode()
-def _ssm_forward_hidden(cfg: ModelConfig, model: Mamba2LM, batch: dict):
-    x = L.embed(_tokens(batch["tokens"], model), model.embed, act_dtype(cfg))
-    for blk in model.layers:
+def _served_forward_hidden(cfg: ModelConfig, model: nn.Module, batch: dict):
+    """``forward_hidden`` of the families served only (ssm, hybrid,
+    moe)."""
+    tokens = _tokens(batch["tokens"], model)
+    B, S = tokens.shape
+    x = L.embed(tokens, model.embed, act_dtype(cfg))
+    positions = _positions(B, S, x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for li, blk in enumerate(model.layers):
+        if cfg.family == "moe":
+            x, a = _moe_block(blk, x, positions, cfg)
+            aux = aux + a
+            continue
         x = _ssm_block(blk, x, cfg)
-    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        if _shared_group(cfg, li) is not None:
+            x = _dense_block(model.shared, x, positions, cfg)
+    return L.rms_norm(x, model.final_norm, cfg.norm_eps), aux
 
 
 def forward_hidden(cfg: ModelConfig, model: nn.Module, batch: dict, *,
                    remat: bool = False):
-    """Full-sequence forward up to the final norm → (hidden, aux loss).
+    """Full-sequence forward up to the final norm → (hidden, aux loss;
+    the sum of the layers' for ``moe``, else 0).
 
     ``dense``: differentiable; with ``remat`` (and grad enabled) each
     layer is checkpointed, so backward keeps one (B, S, d) input per layer
-    and recomputes the rest.  ``ssm``: under ``torch.inference_mode``."""
+    and recomputes the rest.  The other families: under
+    ``torch.inference_mode``."""
     _require_ported(cfg)
-    if cfg.family == "ssm":
-        return _ssm_forward_hidden(cfg, model, batch)
+    if cfg.family != "dense":
+        return _served_forward_hidden(cfg, model, batch)
     tokens = _tokens(batch["tokens"], model)
     B, S = tokens.shape
     x = L.embed(tokens, model.embed, act_dtype(cfg))
-    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    positions = _positions(B, S, tokens.device)
     ckpt = remat and torch.is_grad_enabled()
     for blk in model.layers:
         if ckpt:
@@ -325,10 +443,15 @@ def loss_fn(cfg: ModelConfig, model: nn.Module, batch: dict, *,
     """Training loss → (loss, {"xent": loss, "aux": aux}), differentiable
     with respect to every parameter of a ``dense`` model."""
     _require_ported(cfg)
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            "training the 'moe' family is not yet ported (ROADMAP Queue 1 "
+            "step 4c)")
     if cfg.family != "dense":
         raise NotImplementedError(
             f"training the {cfg.family!r} family needs a backward of the "
-            "ssd_scan kernel, which is not written yet (ROADMAP Queue 1)")
+            "ssd_scan kernel, which is not written yet (ROADMAP Queue 1 "
+            "step 4b)")
     x, aux = forward_hidden(cfg, model, batch, remat=remat)
     loss = fused_logits_xent(x, lm_head_table(cfg, model),
                              _tokens(batch["labels"], model))
@@ -350,44 +473,90 @@ def _serve_mlp(p: DenseBlock, h: torch.Tensor, cfg: ModelConfig
     return L.swiglu(L.rms_norm(h, p.ln2, cfg.norm_eps), *w)
 
 
-def _dense_prefill(cfg: ModelConfig, model: DenseLM, x: torch.Tensor):
-    """Dense layers over the prompt → (hidden, {"k", "v"}), each layer's
-    k and v written into one stacked (L, B, Hkv, S, dh) buffer."""
+def _serve_ffn(p: DenseBlock | MoEBlock, h: torch.Tensor, cfg: ModelConfig
+               ) -> torch.Tensor:
+    """h plus the served block's FFN: the SwiGLU MLP or the MoE layer."""
+    if isinstance(p, MoEBlock):
+        y, _ = MOE.moe_layer(p.moe, L.rms_norm(h, p.ln2, cfg.norm_eps), cfg)
+        return h + y
+    return h + _serve_mlp(p, h, cfg)
+
+
+def _block_prefill(cfg: ModelConfig, p: DenseBlock | MoEBlock,
+                   x: torch.Tensor, positions: torch.Tensor,
+                   K: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """One attention block over the prompt, its k and v written into the
+    cache slices K, V (B, Hkv, S, dh)."""
+    a, (k, v) = ATT.attention_prefill(
+        p.attn, L.rms_norm(x, p.ln1, cfg.norm_eps), positions, cfg)
+    K.copy_(k)
+    V.copy_(v)
+    return _serve_ffn(p, x + a, cfg)
+
+
+def _block_decode(cfg: ModelConfig, p: DenseBlock | MoEBlock,
+                  x: torch.Tensor, K: torch.Tensor, V: torch.Tensor,
+                  pos: int) -> torch.Tensor:
+    """One attention block on one token, its k and v written at ``pos``
+    of the cache slices K, V in place."""
+    a = ATT.attention_decode(p.attn, L.rms_norm(x, p.ln1, cfg.norm_eps), K,
+                             V, pos, cfg)
+    return _serve_ffn(p, x + a, cfg)
+
+
+def _kv_cache(cfg: ModelConfig, x: torch.Tensor) -> dict:
+    """Uninitialised KV buffers of the prefill, as ``cache_specs`` at the
+    prompt's length."""
     B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    spec = IO.cache_specs(cfg, ShapeConfig("prefill", "prefill", S, B))["k"]
-    K = torch.empty(spec.shape, dtype=spec.dtype, device=x.device)
-    V = torch.empty(spec.shape, dtype=spec.dtype, device=x.device)
+    specs = IO.cache_specs(cfg, ShapeConfig("prefill", "prefill", S, B))
+    return {n: torch.empty(s.shape, dtype=s.dtype, device=x.device)
+            for n, s in specs.items() if n in ("k", "v", "attn_k", "attn_v")}
+
+
+def _attention_prefill(cfg: ModelConfig, model: nn.Module, x: torch.Tensor):
+    """Dense or MoE layers over the prompt → (hidden, {"k", "v"}), each
+    layer's k and v written into one stacked (L, B, Hkv, S, dh) buffer."""
+    B, S, _ = x.shape
+    positions = _positions(B, S, x.device)
+    cache = _kv_cache(cfg, x)
     for li, blk in enumerate(model.layers):
-        a, (k, v) = ATT.attention_prefill(
-            blk.attn, L.rms_norm(x, blk.ln1, cfg.norm_eps), positions, cfg)
-        K[li].copy_(k)
-        V[li].copy_(v)
-        x = x + a
-        x = x + _serve_mlp(blk, x, cfg)
-    return x, {"k": K, "v": V}
+        x = _block_prefill(cfg, blk, x, positions, cache["k"][li],
+                           cache["v"][li])
+    return x, cache
 
 
 def _ssm_prefill(cfg: ModelConfig, model: Mamba2LM, x: torch.Tensor):
+    """Mamba2 layers over the prompt → (hidden, {"conv", "ssm"}); for the
+    hybrid also the shared block after each group, its k and v written
+    into ``attn_k`` / ``attn_v`` (n_groups, B, Hkv, S, dh)."""
+    B, S, _ = x.shape
+    positions = _positions(B, S, x.device)
+    cache = _kv_cache(cfg, x)
     convs, states = [], []
-    for blk in model.layers:
+    for li, blk in enumerate(model.layers):
         out, entry = _ssm_prefill_layer(
             blk.ssm, L.rms_norm(x, blk.ln1, cfg.norm_eps), cfg)
         x = x + out
         convs.append(entry["conv"])
         states.append(entry["ssm"])
-    return x, {"conv": torch.stack(convs), "ssm": torch.stack(states)}
+        g = _shared_group(cfg, li)
+        if g is not None:
+            x = _block_prefill(cfg, model.shared, x, positions,
+                               cache["attn_k"][g], cache["attn_v"][g])
+    cache.update(conv=torch.stack(convs), ssm=torch.stack(states))
+    return x, cache
 
 
 @torch.inference_mode()
 def prefill(cfg: ModelConfig, model: nn.Module, batch: dict):
     """Returns (last-position fp32 logits (B, V), cache dict): ``{"k",
-    "v"}`` (L, B, Hkv, S, dh) for ``dense``, ``{"conv", "ssm"}`` for
-    ``ssm``."""
+    "v"}`` (L, B, Hkv, S, dh) for ``dense`` and ``moe``, ``{"conv",
+    "ssm"}`` for ``ssm``, and those two plus ``{"attn_k", "attn_v"}``
+    (n_groups, B, Hkv, S, dh) for ``hybrid``."""
     _require_ported(cfg)
     x = L.embed(_tokens(batch["tokens"], model), model.embed, act_dtype(cfg))
-    if cfg.family == "dense":
-        x, cache = _dense_prefill(cfg, model, x)
+    if cfg.family in ("dense", "moe"):
+        x, cache = _attention_prefill(cfg, model, x)
     else:
         x, cache = _ssm_prefill(cfg, model, x)
     x = L.rms_norm(x[:, -1:, :], model.final_norm, cfg.norm_eps)
@@ -401,27 +570,30 @@ def decode_step(cfg: ModelConfig, model: nn.Module, token, cache: dict,
 
     ``cache`` is updated in place, layer by layer, and returned: the
     reference returns a new cache, which here would copy the whole cache
-    every token.  ``dense`` writes the token's k and v at ``pos`` (the
-    count of valid positions, a host int) of each layer's slice of the
-    stacked cache and attends to [0, pos]; ``ssm`` does not read ``pos``.
+    every token.  ``dense``, ``moe`` and ``hybrid`` write the token's k
+    and v at ``pos`` (the count of valid positions, a host int) of each
+    attention's slice of the cache and attend to [0, pos]; ``ssm`` does
+    not read ``pos``.
     """
     _require_ported(cfg)
-    if cfg.family == "dense" and pos is None:
-        raise ValueError("dense decode needs pos, the count of valid cache "
-                         "positions")
+    if cfg.family in ATTENTION_FAMILIES and pos is None:
+        raise ValueError(f"{cfg.family} decode needs pos, the count of "
+                         "valid cache positions")
     x = L.embed(_tokens(token, model), model.embed, act_dtype(cfg))
     for li, blk in enumerate(model.layers):
-        h = L.rms_norm(x, blk.ln1, cfg.norm_eps)
-        if cfg.family == "dense":
-            a = ATT.attention_decode(blk.attn, h, cache["k"][li],
-                                     cache["v"][li], pos, cfg)
-            x = x + a
-            x = x + _serve_mlp(blk, x, cfg)
+        if cfg.family in ("dense", "moe"):
+            x = _block_decode(cfg, blk, x, cache["k"][li], cache["v"][li],
+                              pos)
             continue
         entry = {"conv": cache["conv"][li], "ssm": cache["ssm"][li]}
-        out, new = SSM.ssm_decode(blk.ssm, h, entry, cfg)
+        out, new = SSM.ssm_decode(
+            blk.ssm, L.rms_norm(x, blk.ln1, cfg.norm_eps), entry, cfg)
         x = x + out
         cache["conv"][li].copy_(new["conv"])
         cache["ssm"][li].copy_(new["ssm"])
+        g = _shared_group(cfg, li)
+        if g is not None:
+            x = _block_decode(cfg, model.shared, x, cache["attn_k"][g],
+                              cache["attn_v"][g], pos)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     return _logits(cfg, model, x)[:, 0, :], cache

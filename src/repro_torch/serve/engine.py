@@ -1,8 +1,9 @@
 """LM text generation, as ``repro.serve.engine.ServeEngine``: batched
 prefill, then decode of one token per step for the whole batch in
 lock-step, greedy or temperature sampling (seeded), for the ``dense``
-(KV cache, ``flash_attention`` in the prefill) and ``ssm`` (conv window
-and SSD state, ``ssd_scan`` in the prefill) families.
+and ``moe`` (KV cache, ``flash_attention`` in the prefill), ``ssm``
+(conv window and SSD state, ``ssd_scan`` in the prefill) and ``hybrid``
+(both: one KV cache per application of the shared block) families.
 
 The reference jits prefill and decode once per (batch, length) bucket
 and shards over a mesh; the port runs eagerly on one ``device``
@@ -29,7 +30,7 @@ class GenerationResult:
 
 
 class ServeEngine:
-    def __init__(self, cfg: ModelConfig, model: T.DenseLM | T.Mamba2LM, *,
+    def __init__(self, cfg: ModelConfig, model: torch.nn.Module, *,
                  max_len: int = 256, device="cuda"):
         self.cfg = cfg
         self.model = model
@@ -43,7 +44,8 @@ class ServeEngine:
     def _grow_cache(self, cache: dict, batch: int) -> dict:
         """Re-home the prefill cache into max_len-capacity buffers: each
         prefill tensor is copied into the leading corner of its zeroed
-        buffer (dense: (L, B, Hkv, Lp, dh) into (L, B, Hkv, max_len, dh))."""
+        buffer (a KV cache (L, B, Hkv, Lp, dh) into (L, B, Hkv, max_len,
+        dh); the ssm pair, whose shape has no length, as it is)."""
         shape = ShapeConfig("serve", "decode", self.max_len, batch)
         full = IO.zero_cache(self.cfg, shape, device=self.device)
         for name, dst in full.items():

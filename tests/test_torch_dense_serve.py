@@ -152,7 +152,7 @@ def test_dense_cache_specs_at_full_width():
     assert cache["v"].shape == (3, 2, 2, 9, 16)
     assert cache["v"].dtype == torch.float32 and not cache["v"].any()
     with pytest.raises(NotImplementedError, match="step 5b"):
-        IO.cache_specs(cfg.replace(family="moe"), shape)
+        IO.cache_specs(cfg.replace(family="encdec"), shape)
 
 
 def test_dense_decode_needs_pos():

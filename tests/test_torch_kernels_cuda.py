@@ -185,7 +185,7 @@ def test_problem_on_the_card_is_not_moved_again(cuda):
 # ------------------------------------------------------------------ #
 #: (Bt, S, H, P, N, chunk): the sweep of tests/test_kernels.py, the
 #: reduced mamba2 config, full mamba2-1.3b width (one and several
-#: chunks, ragged S), odd widths.
+#: chunks, ragged S), zamba2-1.2b's width (N 64), odd widths.
 SSD_CASES = [
     (1, 32, 2, 8, 8, 8),
     (2, 64, 3, 16, 8, 16),
@@ -194,6 +194,7 @@ SSD_CASES = [
     (1, 256, 64, 64, 128, 256),
     (2, 1024, 64, 64, 128, 256),
     (1, 600, 64, 64, 128, 256),
+    (1, 600, 64, 64, 64, 256),
     (1, 200, 5, 48, 100, 96),
 ]
 
@@ -476,7 +477,8 @@ def test_reduced_dense_training_step_on_the_card(cuda):
 # ------------------------------------------------------------------ #
 #: (B, Hq, Hkv, Sq, Skv, D, causal): MHA, GQA and MQA; Sq = Skv, the
 #: end-aligned offset Sq < Skv, Sq = 1, ragged Sq and Skv; D 8, 16, 80
-#: (stablelm-3b), 88 (a half 16-column group), 128 (yi-6b); non-causal.
+#: (stablelm-3b), 88 (a half 16-column group), 128 (yi-6b); non-causal;
+#: phi3-medium-14b's 40 heads over 10 and deepseek-67b's 64 over 8.
 FA_CASES = [
     (1, 2, 2, 64, 64, 16, True),
     (2, 4, 2, 64, 64, 16, True),
@@ -488,6 +490,8 @@ FA_CASES = [
     (1, 4, 4, 200, 200, 80, False),
     (2, 8, 2, 130, 300, 128, True),
     (1, 3, 3, 65, 65, 88, True),
+    (1, 40, 10, 130, 130, 128, True),
+    (1, 64, 8, 97, 97, 128, True),
 ]
 
 
