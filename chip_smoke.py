@@ -146,6 +146,25 @@ each failing the run when its check fails:
                check at capacity factor E / k, where nothing drops.  One
                line per run, with its depth and the full depth, and its
                seconds.
+8c. serve_vlm_encdec — slice 12's main path: seamless-m4t-large-v2
+               whole (24 encoder and 24 decoder layers, d_model 1024, 16
+               heads of 64, vocab 256206; random weights from a seeded
+               generator) through ``ServeEngine.generate``, 4 prompts of
+               4096 tokens, 4096 frames of seeded normal ``enc_embeds``
+               and 32 new tokens, greedy: ``flash_attention`` 72
+               launches per prefill (encoder non-causal, decoder self
+               causal, cross non-causal) and 24 per decode step (cross,
+               one query over the 4128-position cross cache), by counter
+               and by profiler; the measurements of ``serve``; the fp32
+               first token within 1e-4 of the forward's max logit (the
+               later ones cannot be held so: decode reads a cross cache
+               zero past the frames, as the reference's does), and decode's
+               cross-attention at full shape, layer 0 of step 1, against
+               the plain version at the kernel gate in bf16 and fp32.
+               Then qwen2-vl-72b (M-RoPE) at 6 of its 80 layers, width
+               never cut, 2 × 2048 + 8: ``flash_attention`` 6 per
+               prefill, by counter and by profiler, finite logits, the
+               fp32 greedy check.  One line per run with its seconds.
 9. train    — slice 3's main path: full-width stablelm-3b (32 layers,
                random weights from a seeded generator) through
                ``TrainLoop.run``, FLEXA with the default settings, bf16
@@ -174,9 +193,13 @@ within 1e-5 relative, and a second launch give the same bits.  And
 (8/1, D 64), causal and not, Sq = Skv, the end-aligned Sq < Skv, Sq = 1,
 ragged Skv (4133), and the stablelm-3b, yi-6b and zamba2-1.2b (32/32,
 D 64) prefills at full size (4 × 4096), phi3-medium-14b's (2 × 2048, 40
-heads over 10, D 128) and deepseek-67b's (1 × 1024, 64 over 8); fp32 within 2e-5 and bf16 within 2 bf16 ulps per element
-plus 2e-5, finite, a second launch bitwise, and a causal call with
-Sq > Skv refused.  And ``apply_update``, ``batched_best_response`` and
+heads over 10, D 128), deepseek-67b's (1 × 1024, 64 over 8),
+seamless-m4t-large-v2's (4 × 4096, 16/16, D 64: encoder non-causal,
+decoder self causal, cross non-causal with q not roped and k, v
+contiguous, decode's cross of one query over 4128) and qwen2-vl-72b's
+(2 × 2048, 64 over 8); fp32 within 2e-5 and bf16 within 2 bf16 ulps per
+element plus 2e-5, finite, a second launch bitwise, and a causal call
+with Sq > Skv refused.  And ``apply_update``, ``batched_best_response`` and
 ``batched_apply_update``: sizes 1, 1000, (8, 100000), (50304, 2560) and a
 misaligned view; scalar, per-instance and dense d; c 0, a host value and
 per instance; γ·m 0, 1, 0.9 and per instance; fp32 and bf16 x: outputs
@@ -280,6 +303,18 @@ SERVE_FAMILIES = [
          profile="prefill"),
     dict(arch="moonshot-v1-16b-a3b", layers=4, batch=1, prompt=1024, new=4,
          seed=0, profile="prefill")]
+#: This slice's runs (``serve_vlm_encdec``): seamless-m4t-large-v2 whole
+#: (24 encoder and 24 decoder layers, 2.03 B parameters) at 4 × 4096 + 32
+#: with 4096 frames, the main path, profiled in full; qwen2-vl-72b at 6 of
+#: 80 layers (≈ 7.76 B of 72.7 B parameters, width never cut): in bf16
+#: the whole model (144 GB) exceeds the card's 80 GB, and at ≈ 6 bytes a
+#: parameter (fp32 masters and bf16 casts) 6 layers put the peak near
+#: qwen3-moe-30b-a3b's 46 GiB.
+SERVE_VLM_ENCDEC = [
+    dict(arch="seamless-m4t-large-v2", batch=4, prompt=4096, new=32,
+         frames=4096, seed=0, profile="full"),
+    dict(arch="qwen2-vl-72b", layers=6, batch=2, prompt=2048, new=8,
+         seed=0, profile="prefill")]
 TRAIN = dict(arch="stablelm-3b", batch=2, seq=4096, steps=6)
 DESCENT = dict(arch="stablelm-3b", batch=4, seq=64, steps=30)
 #: Shapes of the best_response sweep: 1, ragged 1000, the layer tensors
@@ -361,6 +396,22 @@ FA_YI = (4, 32, 4, 4096, 4096, 128, True)
 FA_ZAMBA = (4, 32, 32, 4096, 4096, 64, True)
 FA_PHI3 = (2, 40, 10, 2048, 2048, 128, True)
 FA_DEEPSEEK = (1, 64, 8, 1024, 1024, 128, True)
+#: The vlm and encdec serve paths' attentions: seamless-m4t-large-v2's
+#: encoder (non-causal) and decoder self-attention (causal) over 4 × 4096,
+#: its cross-attention (4096 queries over 4096 frames, q not roped, k and v
+#: the cross cache's slice) and decode's cross-attention (one query over
+#: the grown cache, max_len 4128); qwen2-vl-72b's prefill (64 over 8).
+FA_SEAMLESS_ENC = (4, 16, 16, 4096, 4096, 64, False)
+FA_SEAMLESS_SELF = (4, 16, 16, 4096, 4096, 64, True)
+FA_SEAMLESS_DECODE = (4, 16, 16, 1, 4128, 64, False)
+FA_QWEN2VL = (2, 64, 8, 2048, 2048, 128, True)
+#: (shape, layout) of the model-shaped flash_attention calls that the
+#: sweep gates and the kernels line times (``fa_inputs``' layouts).
+FA_MODEL = [(FA_STABLELM, "self"), (FA_YI, "self"), (FA_ZAMBA, "self"),
+            (FA_PHI3, "self"), (FA_DEEPSEEK, "self"),
+            (FA_SEAMLESS_ENC, "self"), (FA_SEAMLESS_SELF, "self"),
+            (FA_SEAMLESS_ENC, "cross"), (FA_SEAMLESS_DECODE, "cross"),
+            (FA_QWEN2VL, "self")]
 
 
 class PhaseError(Exception):
@@ -716,25 +767,52 @@ def ssd_sweep(torch, ssd, dev):
     return err, len(cases) * len(err)
 
 
-def fa_inputs(torch, shape, dtype, seed, dev, model_layout=False):
+def fa_inputs(torch, shape, dtype, seed, dev, layout=None):
     """q, k, v of a flash_attention call, N(0, 1) in ``dtype``.
 
-    With ``model_layout`` they are laid out as the prefill passes them
-    (``attention._qkv``): heads split out of (B, S, H·D) projections, q
-    and k through ``apply_rope`` at positions 0..S−1, v the strided view
-    itself (needs Sq = Skv)."""
+    ``layout`` lays them out as the model passes them: ``"self"`` as a
+    prefill's self-attention (``attention._qkv``: heads split out of (B,
+    S, H·D) projections, q and k through ``apply_rope`` at positions
+    0..S−1, v the strided view itself; needs Sq = Skv), ``"cross"`` as
+    the encdec cross-attention (q such a view, not roped; k and v
+    contiguous, as slices of the cross cache)."""
     B, Hq, Hkv, Sq, Skv, D, _ = shape
     g = torch.Generator(device=dev).manual_seed(seed)
-    if not model_layout:
+    if layout is None:
         return tuple(torch.randn(s, generator=g, device=dev).to(dtype)
                      for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D),
                                (B, Hkv, Skv, D)))
+
+    def heads(S, H):
+        return torch.randn((B, S, H * D), generator=g, device=dev).to(
+            dtype).reshape(B, S, H, D).transpose(1, 2)
+    if layout == "cross":
+        return (heads(Sq, Hq), *(heads(Skv, Hkv).contiguous()
+                                 for _ in range(2)))
     from repro_torch.models import layers as L
     pos = torch.arange(Sq, device=dev).expand(B, Sq)
-    q, k, v = (torch.randn((B, Sq, H * D), generator=g, device=dev).to(dtype)
-               .reshape(B, Sq, H, D).transpose(1, 2)
-               for H in (Hq, Hkv, Hkv))
+    q, k, v = heads(Sq, Hq), heads(Sq, Hkv), heads(Sq, Hkv)
     return L.apply_rope(q, pos), L.apply_rope(k, pos), v
+
+
+def fa_gate(torch, got, want, what):
+    """The kernel gate: ``got`` finite, of ``want``'s dtype and shape, and
+    within 2e-5 of it (bf16: plus 2 bf16 ulps of each element); returns
+    max |got − want|."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"flash_attention {what}: {got.dtype}{tuple(got.shape)} vs "
+          f"{want.dtype}{tuple(want.shape)}")
+    gf, wf = got.float(), want.float()
+    check(bool(torch.isfinite(gf).all()),
+          f"flash_attention {what}: non-finite output")
+    dy = (gf - wf).abs()
+    tol = torch.full_like(wf, 2e-5)
+    if got.dtype == torch.bfloat16:
+        tol += 2 * torch.exp2(torch.floor(torch.log2(
+            wf.abs().clamp_min(2.0 ** -126))) - 7)
+    check(bool((dy <= tol).all()), f"flash_attention {what} differs from "
+          f"its plain version: max |dy| {float(dy.max())}")
+    return float(dy.max())
 
 
 def fa_sweep(torch, fa, dev):
@@ -743,33 +821,20 @@ def fa_sweep(torch, fa, dev):
     bf16 ulps of each element plus that; finite, and a second launch
     bitwise.  A causal call with Sq > Skv must raise."""
     err = {"float32": 0.0, "bfloat16": 0.0}
-    cases = FA_SWEEP + [FA_STABLELM, FA_YI, FA_ZAMBA, FA_PHI3, FA_DEEPSEEK]
-    for i, shape in enumerate(cases):
+    cases = [(shape, None) for shape in FA_SWEEP] + FA_MODEL
+    for i, (shape, layout) in enumerate(cases):
         causal = shape[-1]
         for name in err:
             q, k, v = fa_inputs(torch, shape, getattr(torch, name), i, dev,
-                                model_layout=i >= len(FA_SWEEP))
+                                layout)
             got = fa.flash_attention(q, k, v, causal=causal)
             again = fa.flash_attention(q, k, v, causal=causal)
             check(torch.equal(got, again), f"flash_attention {shape} {name}: "
                   "a second launch gave other bits")
             want = fa.flash_attention.plain(q, k, v, causal=causal)
-            check(got.dtype == want.dtype and got.shape == want.shape,
-                  f"flash_attention {shape}: {got.dtype}{tuple(got.shape)} "
-                  f"vs {want.dtype}{tuple(want.shape)}")
-            gf, wf = got.float(), want.float()
-            check(bool(torch.isfinite(gf).all()),
-                  f"flash_attention {shape} {name}: non-finite output")
-            dy = (gf - wf).abs()
-            tol = torch.full_like(wf, 2e-5)
-            if name == "bfloat16":
-                tol += 2 * torch.exp2(torch.floor(torch.log2(
-                    wf.abs().clamp_min(2.0 ** -126))) - 7)
-            check(bool((dy <= tol).all()), f"flash_attention {shape} {name} "
-                  f"differs from its plain version: max |dy| "
-                  f"{float(dy.max())}")
-            err[name] = max(err[name], float(dy.max()))
-            del q, k, v, got, again, want, gf, wf, dy, tol
+            err[name] = max(err[name], fa_gate(
+                torch, got, want, f"{shape} {name} {layout}"))
+            del q, k, v, got, again, want
             torch.cuda.empty_cache()
     q, k, v = fa_inputs(torch, (1, 2, 1, 9, 8, 16, True), torch.float32, 0,
                         dev)
@@ -1749,37 +1814,95 @@ def phase_cv(torch, fp, dev):
 def prefill_launches(cfg):
     """Launches of each kernel in one prefill of ``cfg``: ``ssd_scan`` once
     per Mamba2 layer, ``flash_attention`` once per attention (the hybrid's
-    shared block once per group of ``attn_every`` layers)."""
+    shared block once per group of ``attn_every`` layers; encdec's encoder
+    layers once each, its decoder layers twice: self and cross)."""
     if cfg.family == "ssm":
         return {"ssd_scan": cfg.num_layers}
     if cfg.family == "hybrid":
         return {"ssd_scan": cfg.num_layers,
                 "flash_attention": cfg.num_layers // cfg.attn_every}
+    if cfg.family == "encdec":
+        return {"flash_attention": cfg.enc_layers + 2 * cfg.num_layers}
     return {"flash_attention": cfg.num_layers}
+
+
+def decode_launches(cfg):
+    """Launches of each kernel in one decode step of ``cfg``: encdec's
+    cross-attention (one query over the cross cache) once per decoder
+    layer; no other family's decode launches a kernel."""
+    if cfg.family == "encdec":
+        return {"flash_attention": cfg.num_layers}
+    return {}
+
+
+def run_launches(cfg, steps):
+    """Launches of each kernel in a ``generate`` of ``steps`` tokens: one
+    prefill and ``steps`` − 1 decode steps."""
+    per_step = decode_launches(cfg)
+    return {k: n + (steps - 1) * per_step.get(k, 0)
+            for k, n in prefill_launches(cfg).items()}
+
+
+def decode_cross_check(torch, kops, wrapper, eng, prompts, extra):
+    """encdec: one ``generate`` of 2 tokens with ``kops.flash_attention``
+    wrapped to keep the first decode cross-attention's q, k, v and output
+    (layer 0, step 1, at full shape: one query over the grown cache), held
+    against the wrapper's plain version on the same inputs at the kernel
+    gate.  Returns [shape of k, max |Δ|]."""
+    orig, kept = kops.flash_attention, []
+
+    def keep(q, k, v, *, causal=True, scale=None):
+        out = orig(q, k, v, causal=causal, scale=scale)
+        if q.shape[2] == 1 and not kept:
+            kept.append((q.clone(), k.clone(), v.clone(), out.clone(),
+                         causal))
+        return out
+    kops.flash_attention = keep
+    try:
+        eng.generate(prompts, max_new_tokens=2, extra_inputs=extra)
+    finally:
+        kops.flash_attention = orig
+    check(len(kept) == 1, "no decode cross-attention was seen")
+    q, k, v, out, causal = kept[0]
+    check(not causal, "decode's cross-attention ran causal")
+    err = fa_gate(torch, out, wrapper.plain(q, k, v, causal=False),
+                  f"decode cross-attention {tuple(k.shape)} {k.dtype}")
+    return [list(k.shape), err]
 
 
 def serve_run(torch, spec, wrappers, dev, profile="full"):
     """One LM's main serving path: ``ServeEngine.generate`` of ``spec``'s
     arch at full width (its batch, prompt length and new tokens; depth
     cut to ``spec["layers"]`` where given) with random weights from a
-    seeded generator, greedy.  ``wrappers`` maps kernel names (those of
-    ``KERNEL_NAMES``) to wrappers; each kernel of ``prefill_launches(cfg)``
-    must launch that many times a prefill.  With ``profile``
-    (``"full"`` or ``"prefill"``), the prefill alone runs under
-    ``torch.profiler`` first, and each kernel's profiler launches must
-    equal its counter's and that count; the device time of each of its
-    device kernels is printed; ``"full"`` adds the prefill with 8 decode
-    steps under the profiler.  Then the main run, the counters set to 0
-    just before and read just after, and the first 4 tokens against full
-    ``forward``s teacher-forced on the engine's tokens: the gaps to the
-    max logit printed in the activation dtype and, with the same weights
-    in fp32, each within 1e-4.  For ``moe`` the main run prints the share
+    seeded generator, greedy; encdec reads ``spec["frames"]`` frames of
+    standard normal embeddings drawn after the prompts from the prompts'
+    seeded generator, as ``repro_torch.launch.serve`` draws them.
+    ``wrappers`` maps kernel names (those of ``KERNEL_NAMES``) to
+    wrappers; each kernel of ``prefill_launches(cfg)`` must launch that
+    many times a prefill and ``decode_launches(cfg)`` times a decode step.
+    With ``profile`` (``"full"`` or ``"prefill"``), the prefill alone runs
+    under ``torch.profiler`` first, and each kernel's profiler launches
+    must equal its counter's and that count; the device time of each of
+    its device kernels is printed; where decode launches a kernel, the
+    prefill and one decode step are profiled and checked the same way;
+    ``"full"`` adds the prefill with 8 decode steps under the profiler
+    (the device's busy share in decode).  Then the main run, the counters set to 0 just before and read
+    just after, and the first 4 tokens against full forwards
+    teacher-forced on the engine's tokens (the last position's logits of
+    ``forward_hidden``): the gaps to the max logit printed in the
+    activation dtype and, with the same weights in fp32, each within
+    1e-4.  encdec holds only the first token so (its decode reads a cross
+    cache zero past the frames, as the reference's does: ROADMAP Queue
+    3), and then its decode's cross-attention at full shape against the
+    plain version at the kernel gate, in bf16 and in fp32
+    (``decode_cross_check``).  For ``moe`` the main run prints the share
     of (token, choice) pairs dropped at the config's capacity factor, and
     the fp32 check routes at capacity factor E / k, where nothing drops
     (a drop depends on the count of tokens routed together, so a
     teacher-forced forward drops other pairs than the engine's prefill).
     Returns the phase's fields."""
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops as kops
     from repro_torch.models import moe as MOE
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import ServeEngine
@@ -1795,13 +1918,23 @@ def serve_run(torch, spec, wrappers, dev, profile="full"):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
     eng = ServeEngine(cfg, model, max_len=lp + new, device=dev)
-    prompts = np.random.default_rng(spec["seed"]).integers(
-        0, cfg.vocab_size, (nb, lp)).astype(np.int32)
+    rng = np.random.default_rng(spec["seed"])
+    prompts = rng.integers(0, cfg.vocab_size, (nb, lp)).astype(np.int32)
+    extra = warm = None
+    if cfg.is_encoder_decoder:
+        extra = {"enc_embeds": torch.as_tensor(rng.standard_normal(
+            (nb, spec["frames"], cfg.d_model)).astype(np.float32),
+            device=dev)}
+        warm = {"enc_embeds": extra["enc_embeds"][:, :512]}
     # warm-up: cuBLAS handles, the weight casts, the kernels' first launch
-    eng.generate(prompts[:, :512], max_new_tokens=2)
+    eng.generate(prompts[:, :512], max_new_tokens=2, extra_inputs=warm)
     out = {"arch": arch, "layers": cfg.num_layers,
            "layers_of": full.num_layers, "batch": nb, "prompt": lp,
            "new_tokens": new, "dtype": cfg.dtype,
+           **({"enc_layers": cfg.enc_layers, "frames": spec["frames"]}
+              if extra else {}),
+           "launches_per_prefill": want,
+           "launches_per_decode_step": decode_launches(cfg),
            "init_s": round(init_s, 3)}
 
     def zero():
@@ -1814,7 +1947,7 @@ def serve_run(torch, spec, wrappers, dev, profile="full"):
         torch.cuda.synchronize()
         with profiled(torch) as prof:
             t = time.perf_counter()
-            eng.generate(prompts, max_new_tokens=1)
+            eng.generate(prompts, max_new_tokens=1, extra_inputs=extra)
             torch.cuda.synchronize()
             prof_prefill_s = time.perf_counter() - t
         prof_launches = {k: w.launches for k, w in kernels.items()}
@@ -1844,11 +1977,28 @@ def serve_run(torch, spec, wrappers, dev, profile="full"):
             "profiled_prefill_ms": round(prof_prefill_s * 1e3, 3),
             "prefill_device_busy_ms": round(busy[1], 3),
             "prefill_device_busy_share": busy[1] / (prof_prefill_s * 1e3)})
+    if profile and decode_launches(cfg):
+        # the prefill and one decode step under the profiler (a window as
+        # short as the prefill's): each decode launch seen by both
+        zero()
+        with profiled(torch) as prof:
+            eng.generate(prompts, max_new_tokens=2, extra_inputs=extra)
+        prof_launches = {k: w.launches for k, w in kernels.items()}
+        per_kernel2, _ = device_kernels(torch, prof, {
+            k: KERNEL_NAMES[k] for k in kernels})
+        del prof
+        for kname, n in run_launches(cfg, 2).items():
+            check(per_kernel2[kname][0] == n == prof_launches[kname],
+                  f"{kname} launches in the {arch} prefill + 1 decode step:"
+                  f" profiler {per_kernel2[kname][0]}, counter "
+                  f"{prof_launches[kname]}, want {n}")
+        out["profiled_2_token_launches"] = {
+            k: per_kernel2[k][0] for k in prof_launches}
     if profile == "full":
         # prefill + 8 decode steps under the profiler: device busy in decode
         with profiled(torch) as prof:
             t = time.perf_counter()
-            eng.generate(prompts, max_new_tokens=9)
+            eng.generate(prompts, max_new_tokens=9, extra_inputs=extra)
             torch.cuda.synchronize()
             prof_decode_s = time.perf_counter() - t - prof_prefill_s
         _, busy9 = device_kernels(torch, prof, {})
@@ -1863,7 +2013,7 @@ def serve_run(torch, spec, wrappers, dev, profile="full"):
     # the prefill alone, host clock
     torch.cuda.synchronize()
     t = time.perf_counter()
-    eng.generate(prompts, max_new_tokens=1)
+    eng.generate(prompts, max_new_tokens=1, extra_inputs=extra)
     prefill_s = time.perf_counter() - t
 
     # the main run
@@ -1874,12 +2024,12 @@ def serve_run(torch, spec, wrappers, dev, profile="full"):
     zero()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    res = eng.generate(prompts, max_new_tokens=new)
+    res = eng.generate(prompts, max_new_tokens=new, extra_inputs=extra)
     wall = time.perf_counter() - t
     launches = {k: w.launches for k, w in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
-    check(launches == want, f"launches on the {arch} serve path: "
-          f"{launches}, want {want}")
+    check(launches == run_launches(cfg, new), f"launches on the {arch} "
+          f"serve path: {launches}, want {run_launches(cfg, new)}")
     check(res.tokens.shape == (nb, new) and bool(
         ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
         f"generated tokens {res.tokens.shape}")
@@ -1904,7 +2054,7 @@ def serve_run(torch, spec, wrappers, dev, profile="full"):
     # the first tokens against full forwards, teacher-forced: reported
     # in bf16, checked in fp32 (same weights, fp32 activations)
     gaps = {"bfloat16": greedy_gaps(torch, T, cfg, model, prompts,
-                                    res.tokens, dev)}
+                                    res.tokens, dev, extra)}
     cfg32 = cfg.replace(dtype="float32")
     if cfg.family == "moe":
         cfg32 = cfg32.replace(
@@ -1912,13 +2062,23 @@ def serve_run(torch, spec, wrappers, dev, profile="full"):
         out["fp32_check_capacity_factor"] = cfg32.capacity_factor
     eng32 = ServeEngine(cfg32, model, max_len=lp + new, device=dev)
     zero()
-    res32 = eng32.generate(prompts, max_new_tokens=4)
+    res32 = eng32.generate(prompts, max_new_tokens=4, extra_inputs=extra)
     launches32 = {k: w.launches for k, w in kernels.items()}
-    check(launches32 == want, f"the fp32 prefill launched {launches32}")
+    check(launches32 == run_launches(cfg, 4),
+          f"the fp32 run of 4 tokens launched {launches32}")
     gaps["float32"] = greedy_gaps(torch, T, cfg32, model, prompts,
-                                  res32.tokens, dev)
-    check(max(gaps["float32"]) <= 1e-4, f"{arch} fp32: an engine token is "
-          f"{max(gaps['float32'])} below the forward's max logit")
+                                  res32.tokens, dev, extra)
+    held = gaps["float32"][:1] if cfg.is_encoder_decoder else \
+        gaps["float32"]
+    check(max(held) <= 1e-4, f"{arch} fp32: an engine token is "
+          f"{max(held)} below the forward's max logit")
+    if cfg.is_encoder_decoder:
+        fa = wrappers["flash_attention"]
+        out["decode_cross_vs_plain"] = {
+            "bfloat16": decode_cross_check(torch, kops, fa, eng, prompts,
+                                           extra),
+            "float32": decode_cross_check(torch, kops, fa, eng32, prompts,
+                                          extra)}
     torch.cuda.synchronize()
     decode_ms = (wall - prefill_s) / (new - 1) * 1e3
     out.update({
@@ -1979,6 +2139,29 @@ def phase_serve_families(torch, ssd, fa, dev):
         out["run_s"] = round(time.perf_counter() - t, 2)
         say("serve_families", **out)
         launches[spec["arch"]] = out["launches"]
+    return launches
+
+
+def phase_serve_vlm_encdec(torch, fa, dev):
+    """Slice 12's main path and its witness: ``serve_run`` of each
+    ``SERVE_VLM_ENCDEC`` run, one line each with its seconds.
+    seamless-m4t-large-v2 (the main path, profiled in full) launches
+    ``flash_attention`` 72 times a prefill (24 encoder, non-causal; 24
+    decoder self, causal; 24 cross, non-causal) and 24 times a decode
+    step (cross, one query over the grown cache); qwen2-vl-72b 6 times a
+    prefill (one per layer run).  Returns {run: launches}."""
+    launches = {}
+    for spec in SERVE_VLM_ENCDEC:
+        t = time.perf_counter()
+        out = serve_run(torch, spec, {"flash_attention": fa.flash_attention},
+                        dev, profile=spec["profile"])
+        out["run_s"] = round(time.perf_counter() - t, 2)
+        say("serve_vlm_encdec", **out)
+        launches[spec["arch"]] = {
+            "per_prefill": out["launches_per_prefill"]["flash_attention"],
+            "per_decode_step": out["launches_per_decode_step"].get(
+                "flash_attention", 0),
+            "run": out["launches"]["flash_attention"]}
     return launches
 
 
@@ -2156,21 +2339,30 @@ def phase_descent(torch, dev):
         losses=[round(v, 4) for v in losses])
 
 
-def greedy_gaps(torch, T, cfg, model, prompts, tokens, dev):
+def greedy_gaps(torch, T, cfg, model, prompts, tokens, dev, extra=None):
     """For each of the first 4 engine tokens, the largest gap (over the
     batch) between a full forward's max logit and the token's logit, the
-    forward teacher-forced on the engine's earlier tokens."""
+    forward teacher-forced on the engine's earlier tokens: its last
+    position's logits (``forward_hidden``, then the head on that position
+    alone: a full (4, 4100, 256206) fp32 logits tensor is 16.8 GB), with
+    M-RoPE's text positions and encdec's frames ``extra``."""
+    from repro_torch.models import layers as L
     seq, gaps = prompts, []
     for step in range(4):
-        lg, _ = T.forward(cfg, model, {"tokens": seq})
-        check(bool(torch.isfinite(lg).all()),
+        B, S = seq.shape
+        batch = {"tokens": seq, **(extra or {})}
+        if cfg.use_mrope:
+            batch["positions"] = torch.arange(S, device=dev).expand(B, 3, S)
+        with torch.inference_mode():
+            x, _ = T.forward_hidden(cfg, model, batch)
+            last = L.logits(x[:, -1:], T.lm_head_table(cfg, model))[:, 0]
+        check(bool(torch.isfinite(last).all()),
               f"{cfg.dtype} forward {step}: non-finite logits")
-        last = lg[:, -1, :]
         tok = torch.as_tensor(tokens[:, step], device=dev).long()
         gap = last.max(dim=-1).values - last.gather(1, tok[:, None])[:, 0]
         gaps.append(float(gap.max()))
         seq = np.concatenate([seq, tokens[:, step: step + 1]], axis=1)
-        del lg, last
+        del x, last
     return gaps
 
 
@@ -2251,7 +2443,8 @@ def br_row(torch, fp, launches, err, dev):
 
 
 def kernel_line(torch, fp, ssd, fa, r, launches, serve_launches, err,
-                cbr_state, gs_sweep, family_launches, dev):
+                cbr_state, gs_sweep, family_launches, vlm_encdec_launches,
+                dev):
     """Each kernel timed at the path's largest shapes: the gather of Aᵀ
     at the widest bucket K (a full bucket, so ``index_select`` computes
     the same function), and the scatter of K values into (n, 1).
@@ -2321,6 +2514,8 @@ def kernel_line(torch, fp, ssd, fa, r, launches, serve_launches, err,
     for arch, n in family_launches.items():
         for name, count in n.items():
             by_path[name][f"serve_families {arch}"] = count
+    for arch, n in vlm_encdec_launches.items():
+        by_path["flash_attention"][f"serve_vlm_encdec {arch}"] = n
     rows.append(ssd_row(torch, ssd, serve_launches, err["ssd_scan"],
                         by_path["ssd_scan"], dev))
     rows.append(br_row(torch, fp, launches["best_response"],
@@ -2518,12 +2713,17 @@ def fa_row(torch, fa, launches, err, by_path, dev):
     """flash_attention at the stablelm-3b prefill's per-layer shape (4 × 32
     heads × 4096, D 80, bf16, causal), at yi-6b's (32 heads over 4, D
     128), zamba2-1.2b's (32/32, D 64), phi3-medium-14b's (2 × 2048, 40
-    over 10, D 128) and deepseek-67b's (1 × 1024, 64 over 8), q, k, v laid
-    out as the prefill passes them.  Times from CUDA
-    events around back-to-back eager launches (a launch takes
-    milliseconds).  The library call is ``scaled_dot_product_attention``
-    on fp32 copies with ``is_causal`` (the same fp32 function; timed here
-    only, never on the path).
+    over 10, D 128), deepseek-67b's (1 × 1024, 64 over 8),
+    seamless-m4t-large-v2's (4 × 16/16 × 4096, D 64: the encoder's
+    non-causal, the decoder's causal self-attention, the cross-attention
+    and decode's cross-attention of one query over 4128 cached frames)
+    and qwen2-vl-72b's (2 × 2048, 64 over 8), q, k, v laid out as the
+    model passes them (``FA_MODEL``).  Times from CUDA events around
+    back-to-back eager launches (a prefill launch takes milliseconds; the
+    decode call's time includes its launch).  The library call is
+    ``scaled_dot_product_attention`` on fp32 copies with the call's
+    ``is_causal`` (the same fp32 function; timed here only, never on the
+    path).
 
     The bound by operations is the least time the card needs for this
     function: q·kᵀ multiplies bf16 by bf16 into fp32 sums, which the
@@ -2535,12 +2735,14 @@ def fa_row(torch, fa, launches, err, by_path, dev):
     bytes' time and the lesser of the two operation bounds."""
     F = torch.nn.functional
     timed = {}
-    for key, shape in (("stablelm-3b", FA_STABLELM), ("yi-6b", FA_YI),
-                       ("zamba2-1.2b", FA_ZAMBA),
-                       ("phi3-medium-14b", FA_PHI3),
-                       ("deepseek-67b", FA_DEEPSEEK)):
-        q, k, v = fa_inputs(torch, shape, torch.bfloat16, 41, dev,
-                            model_layout=True)
+    keys = ("stablelm-3b", "yi-6b", "zamba2-1.2b", "phi3-medium-14b",
+            "deepseek-67b", "seamless-m4t-large-v2 encoder",
+            "seamless-m4t-large-v2 decoder self",
+            "seamless-m4t-large-v2 cross",
+            "seamless-m4t-large-v2 decode cross", "qwen2-vl-72b")
+    for key, (shape, layout) in zip(keys, FA_MODEL, strict=True):
+        causal = shape[6]
+        q, k, v = fa_inputs(torch, shape, torch.bfloat16, 41, dev, layout)
         qk, pv, nbytes = fa_work(shape, 2)
         t_qk, t_pv = qk / BF16_OPS_PER_S * 1e3, pv / FP32_OPS_PER_S * 1e3
         t_split = (qk + 3 * pv) / BF16_OPS_PER_S * 1e3
@@ -2550,13 +2752,13 @@ def fa_row(torch, fa, launches, err, by_path, dev):
         kf = k.float().repeat_interleave(rep, dim=1)
         vf = v.float().repeat_interleave(rep, dim=1)
         timed[key] = {
-            "shape": list(shape[:6]),
-            "ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v),
-                          reps=10),
+            "shape": list(shape),
+            "ms": cuda_ms(torch, lambda: fa.flash_attention(
+                q, k, v, causal=causal), reps=10),
             "plain_ms": cuda_ms(torch, lambda: fa.flash_attention.plain(
-                q, k, v), reps=3),
+                q, k, v, causal=causal), reps=3),
             "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qf, kf, vf, is_causal=True), reps=10),
+                qf, kf, vf, is_causal=causal), reps=10),
             "qk_flops": qk, "pv_flops": pv, "bytes": nbytes,
             "bytes_ms": t_bytes, "qk_bf16_ms": t_qk, "pv_fp32_ms": t_pv,
             "split_ops_ms": t_split, "fp32_pv_ops_ms": t_qk + t_pv,
@@ -2698,6 +2900,8 @@ def main() -> int:
         launches["flash_attention"] = phase_serve_dense(torch, fa, dev)
         phase = "serve_families"
         family_launches = phase_serve_families(torch, ssd, fa, dev)
+        phase = "serve_vlm_encdec"
+        vlm_encdec_launches = phase_serve_vlm_encdec(torch, fa, dev)
         phase = "train"
         launches["best_response"], launches["apply_update"] = phase_train(
             torch, fp, dev)
@@ -2705,7 +2909,8 @@ def main() -> int:
         phase_descent(torch, dev)
         phase = "kernel timing"
         rows = kernel_line(torch, fp, ssd, fa, r, launches, serve_launches,
-                           err, cbr_state, gs_sweep, family_launches, dev)
+                           err, cbr_state, gs_sweep, family_launches,
+                           vlm_encdec_launches, dev)
     except Exception as exc:                          # report and fail
         print(f"FAIL {phase}: {type(exc).__name__}: {exc}", flush=True)
         raise

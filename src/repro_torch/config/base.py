@@ -66,7 +66,7 @@ class ModelConfig:
 
     ``family`` selects the block stack: ``dense``, ``moe``, ``ssm``
     (attention-free Mamba2), ``hybrid``, ``encdec`` or ``vlm``, as in the
-    reference; the port runs ``ssm`` so far.
+    reference; the port runs all six.
     """
 
     name: str
@@ -107,6 +107,11 @@ class ModelConfig:
     dtype: str = "bfloat16"
     attn_window: int = 0
     source: str = ""
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """May run the 512k-context decode cell (SSM / hybrid only)."""
+        return self.family in ("ssm", "hybrid")
 
     @property
     def is_encoder_decoder(self) -> bool:
@@ -163,6 +168,14 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
 
+
+#: The reference's workload cells (``repro.config.base.SHAPES``).
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
 
 @dataclass(frozen=True)
 class TrainConfig:

@@ -20,6 +20,15 @@ cache, and the GQA projections of the dense family.
   tests hold both against one oracle.
 * ``decode_attention`` / ``attention_decode``: one query token against
   the cache, with the reference's numerics (below).
+* The encdec family's cross-attention: ``encoder_kv`` projects the
+  encoder's output to k and v (no rope), ``cross_attention_layer`` is
+  the reference's function of that name for ``forward``
+  (``chunked_attention``), and ``cross_attention`` serves the prefill
+  and each decode step, through ``kops.flash_attention`` (non-causal):
+  the reference computes decode's cross-attention with
+  ``chunked_attention`` too, not with ``decode_attention``.
+* M-RoPE (``cfg.use_mrope``, the vlm family): positions are (B, 3, S)
+  streams, and decode broadcasts its one position to all three.
 
 Serving (``attention_prefill``, ``attention_decode``) casts the fp32
 weights through the cached :func:`L.cast_param`; training casts with
@@ -168,16 +177,22 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(B, S, H * D)
 
 
+def _kv(weight, x: torch.Tensor, cfg: ModelConfig):
+    """k and v (B, Hkv, S, dh) of x (B, S, d), not roped; ``weight(name)``
+    gives the projection ``name`` in x's dtype."""
+    return (_split_heads(x @ weight("wk"), cfg.num_kv_heads, cfg.head_dim),
+            _split_heads(x @ weight("wv"), cfg.num_kv_heads, cfg.head_dim))
+
+
 def _qkv(weight, x: torch.Tensor, positions: torch.Tensor,
          cfg: ModelConfig):
     """Roped q (B, Hq, S, dh), k and v (B, Hkv, S, dh) of x (B, S, d);
-    ``weight(name)`` gives the projection ``name`` in x's dtype."""
+    positions (B, S), or (B, 3, S) under M-RoPE."""
     q = _split_heads(x @ weight("wq"), cfg.num_heads, cfg.head_dim)
-    k = _split_heads(x @ weight("wk"), cfg.num_kv_heads, cfg.head_dim)
-    v = _split_heads(x @ weight("wv"), cfg.num_kv_heads, cfg.head_dim)
+    k, v = _kv(weight, x, cfg)
     if cfg.use_mrope:
-        raise NotImplementedError("M-RoPE (the vlm family) is not yet "
-                                  "ported: ROADMAP Queue 1 step 5b")
+        return (L.apply_mrope(q, positions, cfg.rope_theta),
+                L.apply_mrope(k, positions, cfg.rope_theta), v)
     return (L.apply_rope(q, positions, cfg.rope_theta),
             L.apply_rope(k, positions, cfg.rope_theta), v)
 
@@ -201,15 +216,50 @@ def attention_layer(p: AttnParams, x: torch.Tensor, positions: torch.Tensor,
 
 
 def attention_prefill(p: AttnParams, x: torch.Tensor,
-                      positions: torch.Tensor, cfg: ModelConfig):
+                      positions: torch.Tensor, cfg: ModelConfig, *,
+                      causal: bool = True):
     """Prefill attention over x (B, S, d_model) → (out, (k, v)), k and v
     (B, Hkv, S, dh) for the decode cache.  The attention itself is
-    ``kops.flash_attention`` (causal): the CUDA kernel for a tensor on the
-    card, once per layer."""
+    ``kops.flash_attention``: the CUDA kernel for a tensor on the card,
+    once per layer (non-causal for the encdec encoder)."""
     weight = _served(p, x.dtype)
     q, k, v = _qkv(weight, x, positions, cfg)
-    out = kops.flash_attention(q, k, v, causal=True)
+    out = kops.flash_attention(q, k, v, causal=causal)
     return _merge_heads(out) @ weight("wo"), (k, v)
+
+
+def encoder_kv(p: AttnParams, enc_out: torch.Tensor, cfg: ModelConfig):
+    """A decoder layer's cross-attention k and v (B, Hkv, Se, dh) of the
+    encoder's output (B, Se, d), with no rope (served weights)."""
+    return _kv(_served(p, enc_out.dtype), enc_out, cfg)
+
+
+def cross_attention_layer(p: AttnParams, x: torch.Tensor,
+                          enc_out: torch.Tensor, cfg: ModelConfig
+                          ) -> torch.Tensor:
+    """``forward``'s cross-attention of x (B, S, d) to the encoder's
+    output: q from x, k and v from ``enc_out``, no rope on either side,
+    ``chunked_attention`` (non-causal), weights cast as in training."""
+    def weight(name):
+        return L.cast(getattr(p, name), x.dtype)
+    q = _split_heads(x @ weight("wq"), cfg.num_heads, cfg.head_dim)
+    k, v = _kv(weight, enc_out, cfg)
+    out = chunked_attention(q, k, v, causal=False)
+    return _merge_heads(out) @ weight("wo")
+
+
+def cross_attention(p: AttnParams, x: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Served cross-attention of x (B, Sq, d) to k, v (B, Hkv, Skv, dh):
+    the prefill's (Sq the prompt, k and v from :func:`encoder_kv`) and each
+    decode step's (Sq = 1, k and v the layer's read-only slice of the
+    cross cache, every one of its positions read, as the reference's
+    ``chunked_attention`` reads them).  One ``kops.flash_attention``
+    (non-causal) per call."""
+    weight = _served(p, x.dtype)
+    q = _split_heads(x @ weight("wq"), cfg.num_heads, cfg.head_dim)
+    out = kops.flash_attention(q, k, v, causal=False)
+    return _merge_heads(out) @ weight("wo")
 
 
 def attention_decode(p: AttnParams, x: torch.Tensor, cache_k: torch.Tensor,
@@ -224,6 +274,8 @@ def attention_decode(p: AttnParams, x: torch.Tensor, cache_k: torch.Tensor,
     """
     B, pos = x.shape[0], int(pos)
     posn = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    if cfg.use_mrope:
+        posn = posn[:, None, :].expand(B, 3, 1)
     weight = _served(p, x.dtype)
     q, k, v = _qkv(weight, x, posn, cfg)
     cache_k[:, :, pos] = k[:, :, 0].to(cache_k.dtype)

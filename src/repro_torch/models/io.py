@@ -1,7 +1,5 @@
 """Decode-cache specifications per (arch × shape), as ``repro.models.io``
-(``cache_specs`` / ``zero_cache``) for the ``dense``, ``moe``, ``ssm``
-and ``hybrid`` families; ``encdec`` and ``vlm`` raise
-``NotImplementedError`` until they are ported."""
+(``cache_specs`` / ``zero_cache``), for every family."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -24,23 +22,27 @@ def act_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def cache_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
-    """Specs of the decode cache at ``seq_len`` capacity: for ``dense``
-    and ``moe`` the stacked per-layer keys and values (L, B, Hkv,
-    seq_len, dh) in the activation dtype; for ``ssm`` the stacked conv
-    window and SSD state (neither grows with seq_len); for ``hybrid``
-    the ssm pair of every layer plus ``attn_k`` / ``attn_v`` (n_groups,
-    B, Hkv, seq_len, dh), one per application of the shared block,
-    n_groups = L // attn_every."""
+    """Specs of the decode cache at ``seq_len`` capacity: for ``dense``,
+    ``moe`` and ``vlm`` the stacked per-layer keys and values (L, B, Hkv,
+    seq_len, dh) in the activation dtype; for ``encdec`` the decoder's
+    ``self_k`` / ``self_v`` and the encoder's ``cross_k`` / ``cross_v``,
+    each of that shape (the reference sizes the cross cache by seq_len
+    too: its stub frontend emits one frame per position); for ``ssm`` the
+    stacked conv window and SSD state (neither grows with seq_len); for
+    ``hybrid`` the ssm pair of every layer plus ``attn_k`` / ``attn_v``
+    (n_groups, B, Hkv, seq_len, dh), one per application of the shared
+    block, n_groups = L // attn_every.  Another family raises
+    ``ValueError``."""
     B, Lr = shape.global_batch, cfg.num_layers
     dt = act_dtype(cfg)
     att = (B, cfg.num_kv_heads, shape.seq_len, cfg.head_dim)
-    if cfg.family in ("dense", "moe"):
-        kv = TensorSpec((Lr,) + att, dt)
+    kv = TensorSpec((Lr,) + att, dt)
+    if cfg.family in ("dense", "moe", "vlm"):
         return {"k": kv, "v": kv}
+    if cfg.family == "encdec":
+        return {"self_k": kv, "self_v": kv, "cross_k": kv, "cross_v": kv}
     if cfg.family not in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"the decode cache of family {cfg.family!r} is not yet ported: "
-            "ROADMAP Queue 1 step 5b (the vlm and encdec families)")
+        raise ValueError(f"unknown model family {cfg.family!r}")
     conv_ch = cfg.d_inner + 2 * cfg.ssm_state
     specs = {
         "conv": TensorSpec((Lr, B, cfg.ssm_conv_width - 1, conv_ch), dt),

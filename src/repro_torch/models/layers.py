@@ -4,8 +4,7 @@ Conventions, as in the reference: parameters are fp32 "master" tensors
 and compute casts them to the activation dtype; functions are
 shape-polymorphic over batch and sequence.  Serving casts through
 :func:`cast_param` (a cached copy, outside autograd); training casts
-with :func:`cast` at every use, which autograd sees.  M-RoPE arrives
-with the ``vlm`` family.
+with :func:`cast` at every use, which autograd sees.
 """
 from __future__ import annotations
 
@@ -32,7 +31,7 @@ def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
 
 
 # ------------------------------------------------------------------ #
-# Rotary position embeddings                                         #
+# Rotary position embeddings (standard + M-RoPE)                     #
 # ------------------------------------------------------------------ #
 def _rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     half = head_dim // 2
@@ -46,14 +45,48 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
     Rotate-half convention (llama-style): pairs (x[..., :D/2], x[..., D/2:]).
     """
+    freqs = _rope_freqs(x.shape[-1], theta, x.device)        # (D/2,)
+    return _rotate_half(
+        x, positions.to(torch.float32)[:, None, :, None] * freqs)
+
+
+def _rotate_half(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """x (B, H, S, D) rotated by the fp32 angles ``ang`` (B, 1, S, D/2),
+    pair i being (x[..., i], x[..., D/2 + i]); in x's dtype."""
     D = x.shape[-1]
-    freqs = _rope_freqs(D, theta, x.device)                  # (D/2,)
-    ang = positions.to(torch.float32)[:, None, :, None] * freqs
     sin, cos = torch.sin(ang), torch.cos(ang)
     xf1 = x[..., : D // 2].to(torch.float32)
     xf2 = x[..., D // 2:].to(torch.float32)
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def mrope_sections(head_dim: int) -> tuple[int, int, int]:
+    """Qwen2-VL's split of the rotary half-dim into (temporal, height,
+    width) sections in the ratio 1 : 1.5 : 1.5 (128 → (16, 24, 24))."""
+    half = head_dim // 2
+    t = half // 4
+    h = (half - t) // 2
+    return (t, h, half - t - h)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                theta: float = 10_000.0) -> torch.Tensor:
+    """x: (B, H, S, D); positions3: (B, 3, S) int, the t / h / w streams
+    → rotated x (same dtype).
+
+    Frequency i of the rotary half reads the stream of its section
+    (:func:`mrope_sections`); the angles, the rotate-half layout and the
+    fp32 arithmetic are :func:`apply_rope`'s, so with t = h = w the two
+    agree bit for bit.
+    """
+    D = x.shape[-1]
+    freqs = _rope_freqs(D, theta, x.device)                  # (D/2,)
+    sel = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(mrope_sections(D), device=x.device))    # (D/2,)
+    pos = positions3.to(torch.float32)[:, sel, :]            # (B, D/2, S)
+    return _rotate_half(x, pos.transpose(1, 2)[:, None, :, :] * freqs)
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor, dtype) -> torch.Tensor:

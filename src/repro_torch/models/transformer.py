@@ -1,9 +1,10 @@
 """Model assembly, as ``repro.models.transformer``, for the ``dense``
 family (training and serving) and the ``ssm`` (attention-free Mamba2),
-``hybrid`` (Zamba2) and ``moe`` families (serving):
+``hybrid`` (Zamba2), ``moe``, ``vlm`` (Qwen2-VL) and ``encdec``
+(Seamless) families (serving):
 
   init_params(cfg, generator=, device=)       → DenseLM | Mamba2LM |
-                                                HybridLM | MoeLM
+                                                HybridLM | MoeLM | EncDecLM
   model_from_arrays(cfg, arrays, device=)     → the same, from the
                                                 reference's parameter tree
   param_leaves(cfg, model)                    → the reference's leaves
@@ -37,10 +38,21 @@ decode writes each new token's k and v into the cache in place.
 * ``moe``: blocks of attention and a token-choice top-k MoE FFN
   (:mod:`repro_torch.models.moe`); ``forward_hidden`` returns the sum of
   the layers' aux losses, and the stacked KV cache is the dense one.
+* ``vlm``: the dense stack (a :class:`DenseLM`) with M-RoPE: every entry
+  point takes ``batch["positions"]`` (B, 3, S), the t / h / w streams the
+  stubbed patchifier would emit, and decode rotates its one position on
+  all three.
+* ``encdec``: ``enc_layers`` (:class:`DenseBlock`, non-causal, rope at
+  the frames' own positions, no final norm) over ``batch["enc_embeds"]``
+  (B, Se, d), the stubbed speech frontend's frames, and ``dec_layers``
+  (:class:`CrossBlock`: causal self-attention, cross-attention to the
+  encoder's output with no rope, MLP).  Its cache holds ``self_k`` /
+  ``self_v`` (L, B, Hkv, S, dh) and ``cross_k`` / ``cross_v`` (L, B,
+  Hkv, Se, dh), read-only in decode.
 
 Training ``ssm`` and ``hybrid`` needs a backward of the ``ssd_scan``
-kernel, which no package has yet; training ``moe`` is not ported yet.
-``vlm`` and ``encdec`` raise ``NotImplementedError``.
+kernel, which no package has yet; training ``moe``, ``vlm`` and
+``encdec`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -60,16 +72,14 @@ from repro_torch.models import ssm as SSM
 from repro_torch.models.io import act_dtype
 
 AUX_WEIGHT = 0.01  # MoE load-balance loss weight
-PORTED_FAMILIES = ("dense", "ssm", "hybrid", "moe")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid", "moe", "vlm", "encdec")
 #: Families whose decode attends to a KV cache (and so needs ``pos``).
-ATTENTION_FAMILIES = ("dense", "hybrid", "moe")
+ATTENTION_FAMILIES = ("dense", "hybrid", "moe", "vlm", "encdec")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not yet ported: ROADMAP Queue 1 "
-            "step 5b (the vlm and encdec families)")
+        raise ValueError(f"unknown model family {cfg.family!r}")
 
 
 def _ones(n: int, device) -> nn.Parameter:
@@ -150,13 +160,14 @@ class DenseBlock(nn.Module):
 class DenseLM(nn.Module):
     """Embedding table, ``layers`` (an ``nn.ModuleList`` of
     :class:`DenseBlock`), final norm and, when untied, ``lm_head``; every
-    parameter requires grad."""
+    parameter requires grad.  The ``vlm`` family's model too (its M-RoPE
+    is in the attention, not in the parameters)."""
 
     def __init__(self, cfg: ModelConfig, *, device):
         super().__init__()
-        if cfg.family != "dense":
-            raise ValueError(f"DenseLM builds the dense family, not "
-                             f"{cfg.family!r}")
+        if cfg.family not in ("dense", "vlm"):
+            raise ValueError(f"DenseLM builds the dense and vlm families, "
+                             f"not {cfg.family!r}")
         _tables(self, cfg, device, requires_grad=True)
         self.layers = nn.ModuleList(DenseBlock(cfg, device=device)
                                     for _ in range(cfg.num_layers))
@@ -203,8 +214,51 @@ class MoeLM(nn.Module):
         self.requires_grad_(False)
 
 
+class CrossBlock(nn.Module):
+    """One pre-norm encdec decoder layer: ``ln1``, ``self_attn``, ``ln2``,
+    ``cross_attn`` (each ``{wq,wk,wv,wo}``), ``ln3``, ``mlp.{w1,w3,w2}``
+    (the reference's ``_init_cross_layer`` tree)."""
+
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__()
+        self.ln1 = _ones(cfg.d_model, device)
+        self.self_attn = ATT.AttnParams(cfg, device=device)
+        self.ln2 = _ones(cfg.d_model, device)
+        self.cross_attn = ATT.AttnParams(cfg, device=device)
+        self.ln3 = _ones(cfg.d_model, device)
+        self.mlp = MLPParams(cfg, device=device)
+
+
+class EncDecLM(nn.Module):
+    """Embedding table, final norm, ``lm_head`` when untied,
+    ``enc_layers`` (``cfg.enc_layers`` :class:`DenseBlock`) and
+    ``dec_layers`` (``cfg.num_layers`` :class:`CrossBlock`).  Serving
+    only: no parameter requires grad."""
+
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__()
+        if cfg.family != "encdec":
+            raise ValueError(f"EncDecLM builds the encdec family, not "
+                             f"{cfg.family!r}")
+        _tables(self, cfg, device, requires_grad=False)
+        self.enc_layers = nn.ModuleList(DenseBlock(cfg, device=device)
+                                        for _ in range(cfg.enc_layers))
+        self.dec_layers = nn.ModuleList(CrossBlock(cfg, device=device)
+                                        for _ in range(cfg.num_layers))
+        self.requires_grad_(False)
+
+
 _MODELS = {"dense": DenseLM, "ssm": Mamba2LM, "hybrid": HybridLM,
-           "moe": MoeLM}
+           "moe": MoeLM, "vlm": DenseLM, "encdec": EncDecLM}
+
+
+def _stacks(cfg: ModelConfig, model: nn.Module) -> dict:
+    """The model's layer stacks by the reference's tree key: ``layers``,
+    or ``enc_layers`` and ``dec_layers`` for encdec."""
+    if cfg.family == "encdec":
+        return {"enc_layers": model.enc_layers,
+                "dec_layers": model.dec_layers}
+    return {"layers": model.layers}
 
 
 def _empty_model(cfg: ModelConfig, device) -> nn.Module:
@@ -223,14 +277,18 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     model.embed.normal_(0.0, 0.02, generator=generator)
     if not cfg.tie_embeddings:
         model.lm_head.normal_(0.0, 0.02, generator=generator)
-    blocks = list(model.layers)
+    blocks = [blk for stack in _stacks(cfg, model).values() for blk in stack]
     if cfg.family == "hybrid":
         blocks.append(model.shared)
     for blk in blocks:
         if isinstance(blk, SSMBlock):
             SSM.init_ssm_params(blk.ssm, generator=generator)
             continue
-        ATT.init_attn_params(blk.attn, generator=generator)
+        if isinstance(blk, CrossBlock):
+            ATT.init_attn_params(blk.self_attn, generator=generator)
+            ATT.init_attn_params(blk.cross_attn, generator=generator)
+        else:
+            ATT.init_attn_params(blk.attn, generator=generator)
         if isinstance(blk, MoEBlock):
             MOE.init_moe_params(blk.moe, generator=generator)
             continue
@@ -257,9 +315,10 @@ def model_from_arrays(cfg: ModelConfig, arrays: dict, *, device
                       ) -> nn.Module:
     """A model holding the reference's parameter tree ``arrays`` (numpy,
     e.g. ``tree_map(np.asarray, T.init_params(cfg, key))``), whose layer
-    leaves are stacked on a leading axis of ``num_layers`` (the hybrid's
-    ``shared`` block is not stacked).  Every leaf is copied as it is; a
-    missing, extra or misshapen leaf raises."""
+    leaves are stacked on a leading axis of the stack's depth (``layers``,
+    or encdec's ``enc_layers`` and ``dec_layers``; the hybrid's ``shared``
+    block is not stacked).  Every leaf is copied as it is; a missing,
+    extra or misshapen leaf raises."""
     model = _empty_model(cfg, device)
 
     def put(param: nn.Parameter, value, name: str) -> None:
@@ -277,23 +336,30 @@ def model_from_arrays(cfg: ModelConfig, arrays: dict, *, device
                            f"wants {sorted(want)}")
         return tree
 
-    top = {"embed", "final_norm", "layers"} | (
+    stacks = _stacks(cfg, model)
+    top = {"embed", "final_norm"} | set(stacks) | (
         set() if cfg.tie_embeddings else {"lm_head"}) | (
         {"shared"} if cfg.family == "hybrid" else set())
     if set(arrays) != top:
         raise KeyError(f"parameter tree has {sorted(arrays)}, the model "
                        f"wants {sorted(top)}")
-    for name in top - {"layers", "shared"}:
+    for name in top - set(stacks) - {"shared"}:
         put(getattr(model, name), arrays[name], name)
     if cfg.family == "hybrid":
         shared = subtree("shared", model.shared)
         for name, param in model.shared.named_parameters():
             put(param, shared[tuple(name.split("."))], f"shared.{name}")
-    layers = subtree("layers", model.layers[0])
-    for li, blk in enumerate(model.layers):
-        for name, param in blk.named_parameters():
-            put(param, layers[tuple(name.split("."))][li],
-                f"layers.{name}[{li}]")
+    for key, stack in stacks.items():
+        layers = subtree(key, stack[0])
+        for path, value in layers.items():
+            if np.shape(value)[:1] != (len(stack),):
+                raise ValueError(f"{key}.{'.'.join(path)}: shape "
+                                 f"{np.shape(value)}, the model has "
+                                 f"{len(stack)} layers")
+        for li, blk in enumerate(stack):
+            for name, param in blk.named_parameters():
+                put(param, layers[tuple(name.split("."))][li],
+                    f"{key}.{name}[{li}]")
     return model
 
 
@@ -314,17 +380,20 @@ def param_leaves(cfg: ModelConfig, model: nn.Module) -> list[Leaf]:
     (dict keys sorted at every level): for stablelm-3b the 12 leaves
     embed, final_norm, layers/attn/{wk,wo,wq,wv}, layers/{ln1,ln2},
     layers/mlp/{w1,w2,w3}, lm_head; the hybrid's ``shared`` block gives
-    one unstacked leaf per tensor, after ``layers``."""
+    one unstacked leaf per tensor, after ``layers``; encdec has
+    ``dec_layers/...`` and ``enc_layers/...`` where the others have
+    ``layers/...``."""
     _require_ported(cfg)
     leaves = [Leaf((name,), [p], False)
               for name, p in model.named_parameters(recurse=False)]
     if cfg.family == "hybrid":
         leaves += [Leaf(("shared",) + tuple(name.split(".")), [p], False)
                    for name, p in model.shared.named_parameters()]
-    per_layer = [dict(blk.named_parameters()) for blk in model.layers]
-    for name in per_layer[0]:
-        leaves.append(Leaf(("layers",) + tuple(name.split(".")),
-                           [lp[name] for lp in per_layer], True))
+    for key, stack in _stacks(cfg, model).items():
+        per_layer = [dict(blk.named_parameters()) for blk in stack]
+        for name in per_layer[0]:
+            leaves.append(Leaf((key,) + tuple(name.split(".")),
+                               [lp[name] for lp in per_layer], True))
     return sorted(leaves, key=lambda leaf: leaf.path)
 
 
@@ -344,11 +413,24 @@ def _tokens(tokens, model: nn.Module) -> torch.Tensor:
 
 
 def _dense_block(p: DenseBlock, h: torch.Tensor, positions: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
+                 cfg: ModelConfig, causal: bool = True) -> torch.Tensor:
     a, _ = ATT.attention_layer(p.attn, L.rms_norm(h, p.ln1, cfg.norm_eps),
-                               positions, cfg)
+                               positions, cfg, causal=causal)
     h = h + a
     return h + L.swiglu(L.rms_norm(h, p.ln2, cfg.norm_eps), p.mlp.w1,
+                        p.mlp.w3, p.mlp.w2)
+
+
+def _cross_block(p: CrossBlock, h: torch.Tensor, positions: torch.Tensor,
+                 enc_out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``forward``'s encdec decoder layer (the reference's ``_dec_block``)."""
+    a, _ = ATT.attention_layer(p.self_attn,
+                               L.rms_norm(h, p.ln1, cfg.norm_eps),
+                               positions, cfg)
+    h = h + a
+    h = h + ATT.cross_attention_layer(
+        p.cross_attn, L.rms_norm(h, p.ln2, cfg.norm_eps), enc_out, cfg)
+    return h + L.swiglu(L.rms_norm(h, p.ln3, cfg.norm_eps), p.mlp.w1,
                         p.mlp.w3, p.mlp.w2)
 
 
@@ -383,15 +465,53 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device)[None, :].expand(B, S)
 
 
+def _batch_positions(cfg: ModelConfig, batch: dict, B: int, S: int,
+                     device) -> torch.Tensor:
+    """The positions of a batch of B × S tokens: ``batch["positions"]``
+    (B, 3, S) under M-RoPE, else 0 … S − 1 in every row."""
+    if not cfg.use_mrope:
+        return _positions(B, S, device)
+    if "positions" not in batch:
+        raise ValueError(f"{cfg.name} (M-RoPE) needs batch['positions'], "
+                         "the (B, 3, S) t / h / w streams")
+    pos = batch["positions"]
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.from_numpy(np.asarray(pos))
+    if tuple(pos.shape) != (B, 3, S):
+        raise ValueError(f"positions {tuple(pos.shape)}, want {(B, 3, S)}")
+    return pos.to(device=device, dtype=torch.long)
+
+
+def _enc_embeds(cfg: ModelConfig, batch: dict, model: nn.Module
+                ) -> torch.Tensor:
+    """encdec's ``batch["enc_embeds"]`` (B, Se, d) on the model's device
+    in the activation dtype."""
+    if "enc_embeds" not in batch:
+        raise ValueError("encdec needs batch['enc_embeds'], the (B, Se, "
+                         "d_model) frame embeddings")
+    enc = batch["enc_embeds"]
+    if not isinstance(enc, torch.Tensor):
+        enc = torch.from_numpy(np.asarray(enc))
+    return enc.to(device=model.embed.device, dtype=act_dtype(cfg))
+
+
 @torch.inference_mode()
 def _served_forward_hidden(cfg: ModelConfig, model: nn.Module, batch: dict):
     """``forward_hidden`` of the families served only (ssm, hybrid,
-    moe)."""
+    moe, encdec)."""
     tokens = _tokens(batch["tokens"], model)
     B, S = tokens.shape
     x = L.embed(tokens, model.embed, act_dtype(cfg))
     positions = _positions(B, S, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "encdec":
+        enc = _enc_embeds(cfg, batch, model)
+        epos = _positions(B, enc.shape[1], x.device)
+        for blk in model.enc_layers:
+            enc = _dense_block(blk, enc, epos, cfg, causal=False)
+        for blk in model.dec_layers:
+            x = _cross_block(blk, x, positions, enc, cfg)
+        return L.rms_norm(x, model.final_norm, cfg.norm_eps), aux
     for li, blk in enumerate(model.layers):
         if cfg.family == "moe":
             x, a = _moe_block(blk, x, positions, cfg)
@@ -408,17 +528,17 @@ def forward_hidden(cfg: ModelConfig, model: nn.Module, batch: dict, *,
     """Full-sequence forward up to the final norm → (hidden, aux loss;
     the sum of the layers' for ``moe``, else 0).
 
-    ``dense``: differentiable; with ``remat`` (and grad enabled) each
-    layer is checkpointed, so backward keeps one (B, S, d) input per layer
-    and recomputes the rest.  The other families: under
+    ``dense`` and ``vlm``: differentiable; with ``remat`` (and grad
+    enabled) each layer is checkpointed, so backward keeps one (B, S, d)
+    input per layer and recomputes the rest.  The other families: under
     ``torch.inference_mode``."""
     _require_ported(cfg)
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "vlm"):
         return _served_forward_hidden(cfg, model, batch)
     tokens = _tokens(batch["tokens"], model)
     B, S = tokens.shape
     x = L.embed(tokens, model.embed, act_dtype(cfg))
-    positions = _positions(B, S, tokens.device)
+    positions = _batch_positions(cfg, batch, B, S, tokens.device)
     ckpt = remat and torch.is_grad_enabled()
     for blk in model.layers:
         if ckpt:
@@ -447,6 +567,10 @@ def loss_fn(cfg: ModelConfig, model: nn.Module, batch: dict, *,
         raise NotImplementedError(
             "training the 'moe' family is not yet ported (ROADMAP Queue 1 "
             "step 4c)")
+    if cfg.family in ("vlm", "encdec"):
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family is not yet ported (ROADMAP "
+            "Queue 1 step 4d)")
     if cfg.family != "dense":
         raise NotImplementedError(
             f"training the {cfg.family!r} family needs a backward of the "
@@ -465,12 +589,12 @@ def forward(cfg: ModelConfig, model: nn.Module, batch: dict):
     return _logits(cfg, model, x), aux
 
 
-def _serve_mlp(p: DenseBlock, h: torch.Tensor, cfg: ModelConfig
-               ) -> torch.Tensor:
-    """The SwiGLU MLP of a served dense layer, weights cast through the
-    cached :func:`L.cast_param`."""
-    w = (L.cast_param(p.mlp, n, h.dtype) for n in ("w1", "w3", "w2"))
-    return L.swiglu(L.rms_norm(h, p.ln2, cfg.norm_eps), *w)
+def _serve_mlp(mlp: MLPParams, ln: torch.Tensor, h: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """A served layer's SwiGLU MLP of h normed by ``ln``, weights cast
+    through the cached :func:`L.cast_param`."""
+    w = (L.cast_param(mlp, n, h.dtype) for n in ("w1", "w3", "w2"))
+    return L.swiglu(L.rms_norm(h, ln, cfg.norm_eps), *w)
 
 
 def _serve_ffn(p: DenseBlock | MoEBlock, h: torch.Tensor, cfg: ModelConfig
@@ -479,7 +603,7 @@ def _serve_ffn(p: DenseBlock | MoEBlock, h: torch.Tensor, cfg: ModelConfig
     if isinstance(p, MoEBlock):
         y, _ = MOE.moe_layer(p.moe, L.rms_norm(h, p.ln2, cfg.norm_eps), cfg)
         return h + y
-    return h + _serve_mlp(p, h, cfg)
+    return h + _serve_mlp(p.mlp, p.ln2, h, cfg)
 
 
 def _block_prefill(cfg: ModelConfig, p: DenseBlock | MoEBlock,
@@ -506,18 +630,18 @@ def _block_decode(cfg: ModelConfig, p: DenseBlock | MoEBlock,
 
 def _kv_cache(cfg: ModelConfig, x: torch.Tensor) -> dict:
     """Uninitialised KV buffers of the prefill, as ``cache_specs`` at the
-    prompt's length."""
+    length of x (B, S, d)."""
     B, S, _ = x.shape
     specs = IO.cache_specs(cfg, ShapeConfig("prefill", "prefill", S, B))
     return {n: torch.empty(s.shape, dtype=s.dtype, device=x.device)
-            for n, s in specs.items() if n in ("k", "v", "attn_k", "attn_v")}
+            for n, s in specs.items() if n not in ("conv", "ssm")}
 
 
-def _attention_prefill(cfg: ModelConfig, model: nn.Module, x: torch.Tensor):
-    """Dense or MoE layers over the prompt → (hidden, {"k", "v"}), each
-    layer's k and v written into one stacked (L, B, Hkv, S, dh) buffer."""
-    B, S, _ = x.shape
-    positions = _positions(B, S, x.device)
+def _attention_prefill(cfg: ModelConfig, model: nn.Module, x: torch.Tensor,
+                       positions: torch.Tensor):
+    """Dense, vlm or MoE layers over the prompt → (hidden, {"k", "v"}),
+    each layer's k and v written into one stacked (L, B, Hkv, S, dh)
+    buffer."""
     cache = _kv_cache(cfg, x)
     for li, blk in enumerate(model.layers):
         x = _block_prefill(cfg, blk, x, positions, cache["k"][li],
@@ -547,20 +671,77 @@ def _ssm_prefill(cfg: ModelConfig, model: Mamba2LM, x: torch.Tensor):
     return x, cache
 
 
+def _encdec_prefill(cfg: ModelConfig, model: EncDecLM, x: torch.Tensor,
+                    enc: torch.Tensor):
+    """The encoder over the frames ``enc`` (B, Se, d), then the decoder
+    over the prompt → (hidden, {"self_k", "self_v", "cross_k",
+    "cross_v"}): each decoder layer's self k and v (L, B, Hkv, S, dh), and
+    its k and v of the encoder's output (L, B, Hkv, Se, dh), computed once
+    and read from the cache by the layer's cross-attention."""
+    B, S, _ = x.shape
+    epos = _positions(B, enc.shape[1], x.device)
+    for blk in model.enc_layers:
+        a, _ = ATT.attention_prefill(
+            blk.attn, L.rms_norm(enc, blk.ln1, cfg.norm_eps), epos, cfg,
+            causal=False)
+        enc = _serve_ffn(blk, enc + a, cfg)
+    cache = {n: t for n, t in _kv_cache(cfg, x).items()
+             if n.startswith("self")}
+    cache.update((n, t) for n, t in _kv_cache(cfg, enc).items()
+                 if n.startswith("cross"))
+    positions = _positions(B, S, x.device)
+    for li, blk in enumerate(model.dec_layers):
+        a, (k, v) = ATT.attention_prefill(
+            blk.self_attn, L.rms_norm(x, blk.ln1, cfg.norm_eps), positions,
+            cfg)
+        cache["self_k"][li].copy_(k)
+        cache["self_v"][li].copy_(v)
+        x = x + a
+        CK, CV = cache["cross_k"][li], cache["cross_v"][li]
+        ck, cv = ATT.encoder_kv(blk.cross_attn, enc, cfg)
+        CK.copy_(ck)
+        CV.copy_(cv)
+        x = x + ATT.cross_attention(
+            blk.cross_attn, L.rms_norm(x, blk.ln2, cfg.norm_eps), CK, CV, cfg)
+        x = x + _serve_mlp(blk.mlp, blk.ln3, x, cfg)
+    return x, cache
+
+
 @torch.inference_mode()
 def prefill(cfg: ModelConfig, model: nn.Module, batch: dict):
     """Returns (last-position fp32 logits (B, V), cache dict): ``{"k",
-    "v"}`` (L, B, Hkv, S, dh) for ``dense`` and ``moe``, ``{"conv",
-    "ssm"}`` for ``ssm``, and those two plus ``{"attn_k", "attn_v"}``
-    (n_groups, B, Hkv, S, dh) for ``hybrid``."""
+    "v"}`` (L, B, Hkv, S, dh) for ``dense``, ``moe`` and ``vlm``,
+    ``{"conv", "ssm"}`` for ``ssm``, those two plus ``{"attn_k",
+    "attn_v"}`` (n_groups, B, Hkv, S, dh) for ``hybrid``, and ``{"self_k",
+    "self_v"}`` (L, B, Hkv, S, dh) plus ``{"cross_k", "cross_v"}`` (L, B,
+    Hkv, Se, dh), Se the frames' length, for ``encdec``."""
     _require_ported(cfg)
-    x = L.embed(_tokens(batch["tokens"], model), model.embed, act_dtype(cfg))
-    if cfg.family in ("dense", "moe"):
-        x, cache = _attention_prefill(cfg, model, x)
+    tokens = _tokens(batch["tokens"], model)
+    x = L.embed(tokens, model.embed, act_dtype(cfg))
+    if cfg.family in ("dense", "moe", "vlm"):
+        positions = _batch_positions(cfg, batch, *tokens.shape, x.device)
+        x, cache = _attention_prefill(cfg, model, x, positions)
+    elif cfg.family == "encdec":
+        x, cache = _encdec_prefill(cfg, model, x,
+                                   _enc_embeds(cfg, batch, model))
     else:
         x, cache = _ssm_prefill(cfg, model, x)
     x = L.rms_norm(x[:, -1:, :], model.final_norm, cfg.norm_eps)
     return _logits(cfg, model, x)[:, 0, :], cache
+
+
+def _cross_decode(cfg: ModelConfig, p: CrossBlock, x: torch.Tensor,
+                  cache: dict, li: int, pos: int) -> torch.Tensor:
+    """encdec decoder layer ``li`` on one token: self-attention writing
+    at ``pos`` of ``self_k`` / ``self_v``, cross-attention to the layer's
+    ``cross_k`` / ``cross_v``, MLP."""
+    x = x + ATT.attention_decode(
+        p.self_attn, L.rms_norm(x, p.ln1, cfg.norm_eps), cache["self_k"][li],
+        cache["self_v"][li], pos, cfg)
+    x = x + ATT.cross_attention(
+        p.cross_attn, L.rms_norm(x, p.ln2, cfg.norm_eps),
+        cache["cross_k"][li], cache["cross_v"][li], cfg)
+    return x + _serve_mlp(p.mlp, p.ln3, x, cfg)
 
 
 @torch.inference_mode()
@@ -570,18 +751,24 @@ def decode_step(cfg: ModelConfig, model: nn.Module, token, cache: dict,
 
     ``cache`` is updated in place, layer by layer, and returned: the
     reference returns a new cache, which here would copy the whole cache
-    every token.  ``dense``, ``moe`` and ``hybrid`` write the token's k
-    and v at ``pos`` (the count of valid positions, a host int) of each
-    attention's slice of the cache and attend to [0, pos]; ``ssm`` does
-    not read ``pos``.
+    every token.  The attention families write the token's k and v at
+    ``pos`` (the count of valid positions, a host int) of each
+    attention's slice of the cache and attend to [0, pos]; ``vlm``
+    rotates at ``pos`` on all three M-RoPE streams, and ``encdec``'s
+    cross-attention reads every position of its layer's ``cross_k`` /
+    ``cross_v``, as the reference does.  ``ssm`` does not read ``pos``.
     """
     _require_ported(cfg)
     if cfg.family in ATTENTION_FAMILIES and pos is None:
         raise ValueError(f"{cfg.family} decode needs pos, the count of "
                          "valid cache positions")
     x = L.embed(_tokens(token, model), model.embed, act_dtype(cfg))
-    for li, blk in enumerate(model.layers):
-        if cfg.family in ("dense", "moe"):
+    layers = model.dec_layers if cfg.family == "encdec" else model.layers
+    for li, blk in enumerate(layers):
+        if cfg.family == "encdec":
+            x = _cross_decode(cfg, blk, x, cache, li, pos)
+            continue
+        if cfg.family in ("dense", "moe", "vlm"):
             x = _block_decode(cfg, blk, x, cache["k"][li], cache["v"][li],
                               pos)
             continue

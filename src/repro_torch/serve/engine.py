@@ -1,9 +1,12 @@
 """LM text generation, as ``repro.serve.engine.ServeEngine``: batched
 prefill, then decode of one token per step for the whole batch in
-lock-step, greedy or temperature sampling (seeded), for the ``dense``
-and ``moe`` (KV cache, ``flash_attention`` in the prefill), ``ssm``
-(conv window and SSD state, ``ssd_scan`` in the prefill) and ``hybrid``
-(both: one KV cache per application of the shared block) families.
+lock-step, greedy or temperature sampling (seeded), for the ``dense``,
+``moe`` and ``vlm`` (KV cache, ``flash_attention`` in the prefill; vlm
+with M-RoPE text positions t = h = w), ``ssm`` (conv window and SSD
+state, ``ssd_scan`` in the prefill), ``hybrid`` (both: one KV cache per
+application of the shared block) and ``encdec`` (the frames
+``extra_inputs["enc_embeds"]`` through the encoder; a self and a cross
+KV cache) families.
 
 The reference jits prefill and decode once per (batch, length) bucket
 and shards over a mesh; the port runs eagerly on one ``device``
@@ -45,7 +48,14 @@ class ServeEngine:
         """Re-home the prefill cache into max_len-capacity buffers: each
         prefill tensor is copied into the leading corner of its zeroed
         buffer (a KV cache (L, B, Hkv, Lp, dh) into (L, B, Hkv, max_len,
-        dh); the ssm pair, whose shape has no length, as it is)."""
+        dh); the ssm pair, whose shape has no length, as it is).
+
+        encdec's ``cross_k`` / ``cross_v`` (L, B, Hkv, enc_len, dh) grow
+        to max_len too, zero past enc_len, as the reference grows them.
+        Decode's cross-attention reads every position, so those zero keys
+        take softmax weight and its logits are not those of a forward
+        over the same tokens: the reference's behaviour, which the port
+        keeps (ROADMAP Queue 3, reference caveats)."""
         shape = ShapeConfig("serve", "decode", self.max_len, batch)
         full = IO.zero_cache(self.cfg, shape, device=self.device)
         for name, dst in full.items():
@@ -57,16 +67,27 @@ class ServeEngine:
     def generate(self, prompts: np.ndarray, *, max_new_tokens: int = 32,
                  temperature: float = 0.0, seed: int = 0,
                  extra_inputs: dict | None = None) -> GenerationResult:
-        """prompts: (batch, prompt_len) int32."""
+        """prompts: (batch, prompt_len) int32; for encdec
+        ``extra_inputs={"enc_embeds": (batch, enc_len, d_model)}``
+        (numpy or a tensor)."""
         B, Lp = prompts.shape
         if Lp + max_new_tokens > self.max_len:
             raise ValueError(f"prompt {Lp} + {max_new_tokens} new tokens "
                              f"exceed max_len {self.max_len}")
-        if extra_inputs:
-            raise NotImplementedError(
-                "extra inputs (encdec frames) are not yet ported")
         batch = {"tokens": torch.as_tensor(np.asarray(prompts, np.int32),
                                            device=self.device)}
+        if self.cfg.use_mrope:      # text: t = h = w = 0 … Lp − 1
+            batch["positions"] = torch.arange(
+                Lp, device=self.device).expand(B, 3, Lp)
+        if self.cfg.is_encoder_decoder:
+            if extra_inputs is None or "enc_embeds" not in extra_inputs:
+                raise ValueError("encdec serving needs enc_embeds")
+            enc = extra_inputs["enc_embeds"]
+            if enc.shape[1] > self.max_len:
+                raise ValueError(f"enc_embeds' {enc.shape[1]} frames exceed "
+                                 f"max_len {self.max_len}, the cross cache's "
+                                 "capacity")
+            batch["enc_embeds"] = enc
         logits, cache = T.prefill(self.cfg, self.model, batch)
         cache = self._grow_cache(cache, B)
 

@@ -151,8 +151,13 @@ def test_dense_cache_specs_at_full_width():
     cache = IO.zero_cache(cfg, ShapeConfig("d", "decode", 9, 2), device="cpu")
     assert cache["v"].shape == (3, 2, 2, 9, 16)
     assert cache["v"].dtype == torch.float32 and not cache["v"].any()
-    with pytest.raises(NotImplementedError, match="step 5b"):
-        IO.cache_specs(cfg.replace(family="encdec"), shape)
+    specs = IO.cache_specs(cfg.replace(family="encdec"), shape)
+    assert set(specs) == {"self_k", "self_v", "cross_k", "cross_v"}
+    assert specs["cross_k"] == ((3, 4, 2, 4128, 16), torch.float32)
+    assert IO.cache_specs(cfg.replace(family="vlm"), shape)["v"] == \
+        ((3, 4, 2, 4128, 16), torch.float32)
+    with pytest.raises(ValueError, match="unknown"):
+        IO.cache_specs(cfg.replace(family="rnn"), shape)
 
 
 def test_dense_decode_needs_pos():

@@ -281,24 +281,6 @@ def test_full_configs_published_widths():
             c.d_ff, c.vocab_size) == (95, 8192, 64, 8, 22016, 102400)
 
 
-@pytest.mark.parametrize("arch,step", [("seamless-m4t-large-v2", "5b.5"),
-                                       ("qwen2-vl-72b", "5b.4")])
-def test_vlm_and_encdec_archs_still_raise(arch, step):
-    assert set(registry.NOT_YET_PORTED) == {"seamless-m4t-large-v2",
-                                            "qwen2-vl-72b"}
-    assert set(registry.ARCHS) | set(registry.NOT_YET_PORTED) == \
-        set(jregistry.ARCHS)
-    for fn in (registry.get_config, registry.get_reduced):
-        with pytest.raises(NotImplementedError, match=step):
-            fn(arch)
-    cfg = registry.get_reduced("yi-6b").replace(
-        family=registry.NOT_YET_PORTED[arch][0])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        IO.cache_specs(cfg, ShapeConfig("d", "decode", 8, 2))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        T.init_params(cfg, generator=torch.Generator(), device="cpu")
-
-
 def test_hybrid_and_moe_cache_specs_at_full_width():
     shape = ShapeConfig("serve", "decode", 4128, 4)
     specs = IO.cache_specs(registry.get_config("zamba2-1.2b"), shape)

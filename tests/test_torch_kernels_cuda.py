@@ -560,6 +560,33 @@ def test_flash_attention_tensor_core_body_matches_plain_version(cuda, case,
     assert torch.equal(got, tops.flash_attention(q, k, v, causal=causal))
 
 
+#: seamless-m4t-large-v2's cross-attentions, in its serve path's layout:
+#: the prefill's (4 × 4096 queries, not roped, heads split out of the
+#: (B, S, 16·64) projection, over 4096 frames) and decode's (one query
+#: over the 4128-position cross cache), k and v contiguous cache slices.
+FA_CROSS_CASES = [(4, 16, 4096, 4096, 64), (4, 16, 1, 4128, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FA_CROSS_CASES, ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_encdec_cross_calls_match_plain_version(cuda, case,
+                                                                dtype):
+    B, H, Sq, Skv, D = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cpu").manual_seed(Sq + Skv)
+    q = torch.randn((B, Sq, H * D), generator=g).to(device=cuda, dtype=dt)
+    q = q.reshape(B, Sq, H, D).transpose(1, 2)
+    k, v = (torch.randn((B, H, Skv, D), generator=g).to(device=cuda,
+                                                         dtype=dt)
+            for _ in range(2))
+    n0 = tfa.flash_attention.launches
+    got = tops.flash_attention(q, k, v, causal=False)
+    assert tfa.flash_attention.launches == n0 + 1
+    assert_fa_close(got, tfa.flash_attention.plain(q, k, v, causal=False))
+    assert torch.equal(got, tops.flash_attention(q, k, v, causal=False))
+
+
 @pytest.mark.cuda
 def test_flash_attention_bf16_body_runs_on_tensor_cores(cuda):
     """The SASS of every bf16 instantiation holds HMMA (mma.sync) and no

@@ -151,9 +151,8 @@ def test_registry_and_cache_specs():
     assert (cfg.num_layers, cfg.d_model, cfg.d_inner, cfg.ssm_nheads,
             cfg.ssm_state, cfg.ssm_chunk, cfg.vocab_size) == \
         (48, 2048, 4096, 64, 128, 256, 50280)
-    for arch in ("seamless-m4t-large-v2", "qwen2-vl-72b"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            get_config(arch)
+    assert get_config("seamless-m4t-large-v2").family == "encdec"
+    assert get_config("qwen2-vl-72b").use_mrope
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     specs = IO.cache_specs(cfg, ShapeConfig("d", "decode", 32768, 4))
