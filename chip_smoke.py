@@ -41,7 +41,14 @@ each failing the run when its check fails:
                ragged S, strided views of an xBC
                buffer, fp32 and bf16, and the decay-overflow case, within
                1e-4 × max |y| (bf16: 2 ulps per element plus that), finite
-               and bitwise repeatable.
+               and bitwise repeatable.  ``ssd_scan_bwd`` against its plain
+               version (autograd of ``ssd_scan_ragged``) at mamba2-1.3b's
+               training shape (2 × 4096, N 128, chunk 256), zamba2-1.2b's
+               N 64 with a nonzero dh_final, the reduced config, a ragged
+               odd shape (1 × 200, 5 heads of 48, N 100, chunk 96) and the
+               decay-overflow case over a ragged S of 600; fp32 and bf16;
+               dx, ddt, dA, dB and dC each at that gate, and a second
+               launch bitwise.
 3. goldens  — ``tests/golden/flexa_lasso_V.json``,
                ``fista_lasso_V.json``, ``admm_lasso_V.json`` and
                ``path_lasso_compact_V.json`` on the card, at the tests'
@@ -179,6 +186,27 @@ each failing the run when its check fails:
                equals its plain version bit for bit and e2 agrees within
                1e-5 relative, and the kernel's updated x equals the plain
                update's bit for bit.
+9b. train_ssm — slice 13's main path: full-width mamba2-1.3b (48
+               layers, d_model 2048, N 128, chunk 256, random weights from
+               a seeded generator) through ``TrainLoop.run``, FLEXA
+               defaults, bf16, 2 × 4096, 4 steps, with ``train``'s checks
+               and measurements: the step-1 check of all 434 tensors,
+               every loss finite, ``best_response`` and ``apply_update``
+               434 per step, and ``ssd_scan`` 96 (two per layer: remat's
+               recompute) and ``ssd_scan_bwd`` 48 per step, by counter and
+               by profiler; per-step ms, the split step, peak memory, the
+               device time of the scan and its backward per step.
+9c. train_hybrid — zamba2-1.2b whole (38 Mamba2 layers, the shared block
+               after each 6), 2 × 4096, 2 steps, with ``train_ssm``'s checks
+               and measurements: the step-1 check of all 353 tensors,
+               every loss finite, ``ssd_scan`` 76, ``ssd_scan_bwd`` 38 and
+               ``best_response`` / ``apply_update`` 353 per step, by counter
+               and by profiler.
+9d. train_families — the moe, vlm and encdec families at their published
+               widths, 2 × 4096 (encdec with 4096 frames), 3 steps each,
+               with the same checks and measurements: seamless-m4t-large-v2
+               whole, qwen3-moe-30b-a3b at 6 of 48 layers and qwen2-vl-72b
+               at 2 of 80.  One line per arch.
 10. descent — reduced stablelm-3b on the card, 30 FLEXA steps at batch
                4 × 64: the mean of the last 5 losses is below the mean of
                the first 5 (the reference's own check,
@@ -262,7 +290,10 @@ REPLACES = {"gather_rows": "src/repro/kernels/flexa_prox.py:278",
             "flash_attention": "src/repro/kernels/flash_attention.py:86",
             "compact_best_response": "src/repro/kernels/flexa_prox.py:351",
             # no Pallas kernel: the reference's one-program sweep
-            "gauss_seidel_sweep": "src/repro/baselines/gauss_seidel.py:37"}
+            "gauss_seidel_sweep": "src/repro/baselines/gauss_seidel.py:37",
+            # the gradient of the ssd_scan kernel, which has no VJP there:
+            # the reference differentiates its jnp oracle
+            "ssd_scan_bwd": "src/repro/kernels/ssd_scan.py:83"}
 FLEXA_CU = "src/repro_torch/kernels/csrc/flexa_prox.cu"
 SOURCES = {"gather_rows": "src/repro_torch/kernels/csrc/compact_rows.cu",
            "scatter_rows": "src/repro_torch/kernels/csrc/compact_rows.cu",
@@ -275,14 +306,16 @@ SOURCES = {"gather_rows": "src/repro_torch/kernels/csrc/compact_rows.cu",
            "compact_best_response":
                "src/repro_torch/kernels/csrc/compact_rows.cu",
            "gauss_seidel_sweep":
-               "src/repro_torch/kernels/csrc/gauss_seidel.cu"}
+               "src/repro_torch/kernels/csrc/gauss_seidel.cu",
+           "ssd_scan_bwd": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu"}
 #: Device-kernel names (substrings of the profiler's records) per wrapper;
 #: ``main`` adds those of ``flexa_prox``'s, ``gauss_seidel``'s and
 #: ``ssd_scan``'s wrappers (their KERNEL_NAMES).
 KERNEL_NAMES = {"flash_attention": ("flash_attention_fwd",)}
 #: Wrappers that launch several device kernels per call: the kernel whose
 #: records count the wrapper's launches (the others' time is summed too).
-CALL_MARKS = {"ssd_scan": "ssd_chunk_out"}
+CALL_MARKS = {"ssd_scan": "ssd_chunk_out",
+              "ssd_scan_bwd": "ssd_bwd_head_sum"}
 SERVE = dict(arch="mamba2-1.3b", batch=4, prompt=4096, new=32, seed=0)
 SERVE_DENSE = dict(arch="stablelm-3b", batch=4, prompt=4096, new=32, seed=0)
 SERVE_GQA = dict(arch="yi-6b", batch=2, prompt=2048, new=8, seed=0)
@@ -316,6 +349,22 @@ SERVE_VLM_ENCDEC = [
     dict(arch="qwen2-vl-72b", layers=6, batch=2, prompt=2048, new=8,
          seed=0, profile="prefill")]
 TRAIN = dict(arch="stablelm-3b", batch=2, seq=4096, steps=6)
+#: Slice 13's main path: mamba2-1.3b whole (48 layers, d_model 2048, N
+#: 128, chunk 256) at train_4k's sequence, the batch cut from 256 to 2.
+TRAIN_SSM = dict(arch="mamba2-1.3b", batch=2, seq=4096, steps=4)
+#: zamba2-1.2b whole (38 Mamba2 layers, the shared block 6 times).
+TRAIN_HYBRID = dict(arch="zamba2-1.2b", batch=2, seq=4096, steps=2)
+#: The moe, vlm and encdec families at their published widths and train_4k's
+#: sequence (the batch cut from 256 to 2), 3 steps each: seamless-m4t-large-v2
+#: whole (24 + 24 layers, 2.03 B parameters; 4096 frames); qwen3-moe-30b-a3b
+#: at 6 of 48 layers (4.36 B) and qwen2-vl-72b at 2 of 80 (4.25 B: its two
+#: untied 152064 × 8192 tables are 2.49 B), cut in depth to what one card
+#: holds beside fp32 masters and their fp32 gradients (8 bytes a parameter),
+#: the fp32 logits and their gradient.
+TRAIN_FAMILIES = [
+    dict(arch="qwen3-moe-30b-a3b", layers=6, batch=2, seq=4096, steps=3),
+    dict(arch="qwen2-vl-72b", layers=2, batch=2, seq=4096, steps=3),
+    dict(arch="seamless-m4t-large-v2", batch=2, seq=4096, steps=3)]
 DESCENT = dict(arch="stablelm-3b", batch=4, seq=64, steps=30)
 #: Shapes of the best_response sweep: 1, ragged 1000, the layer tensors
 #: of stablelm-3b (attn 2560², mlp 2560 × 6912) and its lm_head.
@@ -342,6 +391,17 @@ SSD_FULL = [(1, 256, 64, 64, 128, 256), (4, 4096, 64, 64, 128, 256),
             (4, 4133, 64, 64, 128, 256)]
 SSD_32K = (1, 32768, 64, 64, 128, 256)       # a prefill_32k sequence
 SSD_ZAMBA = (4, 4096, 64, 64, 64, 256)       # zamba2-1.2b's prefill, N 64
+#: ssd_scan_bwd's sweep: (shape, x/B/C strided, a nonzero dh_final, dt 0.1
+#: with A down to −16): mamba2-1.3b's training shape, zamba2-1.2b's N 64,
+#: the reduced config, a ragged odd shape, and the decay's overflow at
+#: chunk 256 over a ragged S.
+SSD_TRAIN = (2, 4096, 64, 64, 128, 256)
+SSD_TRAIN_ZAMBA = (2, 4096, 64, 64, 64, 256)
+SSD_BWD_CASES = [(SSD_TRAIN, True, False, False),
+                 (SSD_TRAIN_ZAMBA, True, True, False),
+                 ((2, 64, 3, 16, 8, 16), False, True, False),
+                 ((1, 200, 5, 48, 100, 96), True, False, False),
+                 ((1, 600, 2, 64, 128, 256), True, True, True)]
 #: (B, Hq, Hkv, Sq, Skv, D, causal) of the flash_attention sweep: MHA
 #: (stablelm-3b, 32/32, D 80), GQA (yi-6b, 32/4, D 128), MQA (8/1, D 64);
 #: causal and not; Sq = Skv, the end-aligned Sq < Skv, Sq = 1, ragged
@@ -484,18 +544,74 @@ def device_kernels(torch, prof, names=KERNEL_NAMES):
     return out, busy
 
 
-def top_kernels(torch, prof, n=12):
-    """The ``n`` device kernels with the most summed time in a profile:
-    [name (first 70 characters), launches, ms]."""
+def top_kernels(torch, prof, n=12, only=None):
+    """The ``n`` device kernels with the most summed time in a profile
+    (of those whose names hold one of ``only``, where given): [name
+    (first 70 characters), launches, ms]."""
     acc = {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        if only is not None and not any(sub in e.name() for sub in only):
             continue
         rec = acc.setdefault(e.name()[:70], [0, 0.0])
         rec[0] += 1
         rec[1] += e.duration_ns() / 1e6
     top = sorted(acc.items(), key=lambda kv: -kv[1][1])[:n]
     return [[k, c, round(ms, 3)] for k, (c, ms) in top]
+
+
+def device_classes(torch, prof, names=KERNEL_NAMES):
+    """A profile's device records by class, summing to its busy time:
+    the port's kernels (``names``), cuBLAS's GEMMs, PyTorch's own kernels
+    (elementwise, reductions, copies), memory copies and sets, the rest:
+    {class: [records, ms]}."""
+    subs = [sub for v in names.values() for sub in v]
+    out = {c: [0, 0.0] for c in ("port_kernels", "cublas_gemm",
+                                 "pytorch_native", "memcpy_memset",
+                                 "other")}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        n = e.name()
+        if any(sub in n for sub in subs):
+            c = "port_kernels"
+        elif any(t in n.lower() for t in ("gemm", "nvjet", "cutlass",
+                                          "xmma")):
+            c = "cublas_gemm"
+        elif "at::native" in n:
+            c = "pytorch_native"
+        elif n.startswith(("Memcpy", "Memset")):
+            c = "memcpy_memset"
+        else:
+            c = "other"
+        out[c][0] += 1
+        out[c][1] += e.duration_ns() / 1e6
+    return {c: [k, round(ms, 3)] for c, (k, ms) in out.items()}
+
+
+def matmul_bound_ms(cfg, model, tokens, remat):
+    """Least device ms of a training step's weight products over
+    ``tokens`` tokens: each layer's 2-D weight (not the causal conv's)
+    once per token and application (the hybrid's shared block once per
+    application; encdec's encoder over as many frames) in bf16, forward,
+    backward's two products and remat's recompute, at the bf16 peak; the
+    fp32 logits' three products at the fp32 peak.  None for moe, whose
+    expert products follow the routing."""
+    if cfg.family == "moe":
+        return None
+    uses = {"shared": cfg.num_layers // cfg.attn_every} \
+        if cfg.family == "hybrid" else {}
+    n = sum(x.numel() * uses.get(k.split(".")[0], 1)
+            for k, x in model.named_parameters()
+            if x.ndim == 2 and not k.endswith("conv_w")
+            and k.split(".")[0] in ("layers", "shared", "enc_layers",
+                                    "dec_layers"))
+    proj = (8 if remat else 6) * n * tokens
+    logits = 6 * cfg.vocab_size * cfg.d_model * tokens
+    return {"layer_weight_elements": n,
+            "projections_bf16_ms": round(proj / BF16_OPS_PER_S * 1e3, 3),
+            "logits_fp32_ms": round(logits / FP32_OPS_PER_S * 1e3, 3)}
 
 
 #: Idle seconds at the start of a profiled window, and the least at its
@@ -508,6 +624,7 @@ def top_kernels(torch, prof, n=12):
 #: inside (``profiled_step_edges_ms``).  At 1 s a mamba2-1.3b prefill's
 #: profile on one host kept 47 of its 48 ``ssd_scan`` records.
 PROFILE_HEAD_S = 2.0
+PROFILE_ATTEMPTS = 3               # profiled training steps at most
 PROFILE_TAIL_FRAC = 0.2            # of the work's time, if more than HEAD
 
 
@@ -557,6 +674,7 @@ def phase_setup(torch, build, fp, ssd, fa, gs):
     fp.library()
     fp.br_library()
     ssd.library()
+    ssd.bwd_library()
     fa.library()
     gs.library()
     check(not torch.backends.cuda.matmul.allow_tf32,
@@ -596,6 +714,11 @@ def phase_hopper(torch, build, fp, fa, gs, ssd):
             info[f"ssd_scan {str(dt).split('.')[-1]} {pass_} "
                  f"N={SSD_ZAMBA[4]}"] = ssd.kernel_info(
                      dt, pass_, SSD_ZAMBA[4], P, chunk)
+    # ssd_scan_bwd's passes (CUDA-core fp32 FMAs in every dtype)
+    for pass_ in ssd.BWD_PASSES:
+        for Ns in (N, SSD_ZAMBA[4]):
+            info[f"ssd_scan_bwd bfloat16 {pass_} N={Ns}"] = \
+                ssd.bwd_kernel_info(torch.bfloat16, pass_, Ns, P, chunk)
     info[f"gauss_seidel_sweep m={FIG1D['m']}"] = gs.kernel_info(FIG1D["m"])
     for B in (1, 8):
         info[f"batched_best_response n={FIG1D['n']} B={B}"] = \
@@ -718,26 +841,7 @@ def ssd_compare(torch, got, want):
     unless finite and y within 1e-4 × max |y| (bf16: plus 2 bf16 ulps of
     each element), h within 1e-4 × max |h|."""
     (y, h), (y0, h0) = got, want
-    check(y.dtype == y0.dtype and y.shape == y0.shape and h.shape ==
-          h0.shape, f"ssd_scan: {y.dtype}{tuple(y.shape)} vs "
-          f"{y0.dtype}{tuple(y0.shape)}")
-    yf, y0f = y.float(), y0.float()
-    check(bool(torch.isfinite(yf).all() and torch.isfinite(h).all()),
-          "ssd_scan: non-finite output")
-    check(bool(torch.isfinite(y0f).all()), "ssd_scan plain: non-finite")
-    dy = (yf - y0f).abs()
-    bound = 1e-4 * float(y0f.abs().max())
-    if y.dtype == torch.bfloat16:
-        ulp = torch.exp2(torch.floor(torch.log2(
-            y0f.abs().clamp_min(2.0 ** -126))) - 7)
-        ok = bool((dy <= 2 * ulp + bound).all())
-    else:
-        ok = float(dy.max()) <= bound
-    dh = float((h - h0).abs().max())
-    check(ok and dh <= 1e-4 * float(h0.abs().max()),
-          f"ssd_scan differs from its plain version: max |dy| "
-          f"{float(dy.max())} (bound {bound}), max |dh| {dh}")
-    return float(dy.max()), dh
+    return gate(torch, y, y0, "ssd_scan y"), gate(torch, h, h0, "ssd_scan h")
 
 
 def ssd_sweep(torch, ssd, dev):
@@ -765,6 +869,75 @@ def ssd_sweep(torch, ssd, dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return err, len(cases) * len(err)
+
+
+def gate(torch, got, want, what):
+    """Max |Δ| of ``got`` against ``want``; fails unless finite, of one
+    dtype and shape, and within 1e-4 × max |want| (bf16: plus 2 bf16 ulps
+    of each element), the gate of ``ssd_compare``."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{what}: {got.dtype}{tuple(got.shape)} vs "
+          f"{want.dtype}{tuple(want.shape)}")
+    gf, wf = got.float(), want.float()
+    check(bool(torch.isfinite(gf).all() and torch.isfinite(wf).all()),
+          f"{what}: non-finite values")
+    d = (gf - wf).abs()
+    bound = 1e-4 * float(wf.abs().max())
+    if got.dtype == torch.bfloat16:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            wf.abs().clamp_min(2.0 ** -126))) - 7)
+        ok = bool((d <= 2 * ulp + bound).all())
+    else:
+        ok = float(d.max()) <= bound
+    check(ok, f"{what} differs from its plain version: max |d| "
+          f"{float(d.max())} (bound {bound})")
+    return float(d.max())
+
+
+def ssd_bwd_args(torch, shape, dtype, seed, dev, strided, dh, overflow):
+    """An ssd_scan_bwd call's inputs: the scan's (``ssd_inputs``), dy (a
+    view into a wider buffer when ``strided``) and dh_final (None unless
+    ``dh``)."""
+    args = ssd_inputs(torch, shape, dtype, seed, dev, strided=strided,
+                      overflow=overflow)
+    Bt, S, H, P, N, _ = shape
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    dy = torch.randn((Bt, S, H, P + 3 * strided), generator=g,
+                     device=dev).to(dtype)[..., :P]
+    dhf = torch.randn((Bt, H, N, P), generator=g, device=dev) if dh else None
+    return args, dy, dhf
+
+
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC")
+
+
+def ssd_bwd_sweep(torch, ssd, dev):
+    """ssd_scan_bwd against its plain version (autograd of
+    ``ssd_scan_ragged``) over ``SSD_BWD_CASES`` in fp32 and bf16, each of
+    dx, ddt, dA, dB, dC at the gate; every launch repeated once,
+    bitwise.  → ({dtype: {grad: max |Δ|}}, calls)."""
+    err = {name: dict.fromkeys(SSD_GRADS, 0.0)
+           for name in ("float32", "bfloat16")}
+    for i, (shape, strided, dh, overflow) in enumerate(SSD_BWD_CASES):
+        for name in err:
+            args, dy, dhf = ssd_bwd_args(torch, shape, getattr(torch, name),
+                                         100 + i, dev, strided, dh, overflow)
+            chunk = shape[-1]
+            scratch = ssd.ssd_scan(*args, chunk=chunk, keep_scratch=True)[2]
+            got = ssd.ssd_scan_bwd(*args, dy, dhf, chunk=chunk,
+                                   scratch=scratch)
+            again = ssd.ssd_scan_bwd(*args, dy, dhf, chunk=chunk,
+                                     scratch=scratch)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"ssd_scan_bwd {shape} {name}: a second launch gave "
+                  "other bits")
+            want = ssd.ssd_scan_bwd.plain(*args, dy, dhf, chunk=chunk)
+            for g, a, b in zip(SSD_GRADS, got, want):
+                err[name][g] = max(err[name][g], gate(
+                    torch, a, b, f"ssd_scan_bwd {shape} {name} {g}"))
+            del args, dy, dhf, scratch, got, again, want
+            torch.cuda.empty_cache()
+    return err, len(SSD_BWD_CASES) * len(err)
 
 
 def fa_inputs(torch, shape, dtype, seed, dev, layout=None):
@@ -978,6 +1151,7 @@ def phase_kernels(torch, fp, ssd, fa, gs, dev):
     torch.cuda.empty_cache()
     ssd_err, n_ssd = ssd_sweep(torch, ssd, dev)
     err["ssd_scan"] = max(e[0] for e in ssd_err.values())
+    err["ssd_scan_bwd"], n_ssd_bwd = ssd_bwd_sweep(torch, ssd, dev)
     br_z_err, br_e2_rel, n_br = br_sweep(torch, fp, dev)
     err["best_response"] = br_z_err
     fa_err, n_fa = fa_sweep(torch, fa, dev)
@@ -992,7 +1166,9 @@ def phase_kernels(torch, fp, ssd, fa, gs, dev):
         torch, fp, kops, dev)
     gs_dx, gs_delta_rel = gs_check(torch, gs, dev)
     say("kernels", max_abs_err=err, gather_ms=times, ssd_scan_cases=n_ssd,
-        ssd_scan_max_abs_err_y_h=ssd_err, best_response_cases=n_br,
+        ssd_scan_max_abs_err_y_h=ssd_err, ssd_scan_bwd_cases=n_ssd_bwd,
+        ssd_scan_bwd_max_abs_err=err["ssd_scan_bwd"],
+        best_response_cases=n_br,
         best_response_max_e2_rel_err=br_e2_rel, flash_attention_cases=n_fa,
         flash_attention_max_abs_err=fa_err, apply_update_cases=upd_cases,
         batched_cases=bat_cases, batched_best_response_max_e2_rel_err=(
@@ -2171,7 +2347,8 @@ def step1_check(torch, fp, kops, T, loop, cfg):
     at the initial weights, every tensor of every leaf with the optimizer's
     τᵢ and c; and each tensor's update x + γ·(z − x) (the mask's 1), the
     kernel's bitwise equal to the plain version's.  Returns (tensors
-    checked, max e2 rel err over tensors, max e2 rel err over leaves)."""
+    checked, the model's tensors, max e2 rel err over tensors, max e2 rel
+    err over leaves)."""
     from repro_torch.core.optimizer import _l1_mask
 
     model, opt, _ = loop.init_state()
@@ -2180,6 +2357,7 @@ def step1_check(torch, fp, kops, T, loop, cfg):
     loss = loss.detach()
     check(math.isfinite(float(loss)), f"step-1 loss {float(loss)}")
     n, rel_t, rel_leaf = 0, 0.0, 0.0
+    tensors = len(list(model.parameters()))
     with torch.no_grad():
         for i, leaf in enumerate(T.param_leaves(cfg, model)):
             c = loop.tcfg.flexa_l1 if (loop.tcfg.flexa_l1 > 0
@@ -2197,63 +2375,106 @@ def step1_check(torch, fp, kops, T, loop, cfg):
             rel_leaf = max(rel_leaf, abs(e_k - e_p) / max(e_p, 1e-30))
     del model, opt, loss
     torch.cuda.empty_cache()
-    return n, rel_t, rel_leaf
+    return n, tensors, rel_t, rel_leaf
 
 
-def phase_train(torch, fp, dev):
-    """Slice 3's main path: full-width stablelm-3b through
-    ``TrainLoop.run`` (FLEXA defaults, bf16 activations, batch 2 × 4096,
-    6 steps), then one more step under the profiler."""
+def ssd_per_step(cfg, remat):
+    """ssd_scan and ssd_scan_bwd launches of one training step: each SSD
+    layer's scan runs forward once, twice under remat (the recompute), and
+    backward once."""
+    n = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    return {"ssd_scan": (2 if remat else 1) * n, "ssd_scan_bwd": n}
+
+
+def phase_train(torch, fp, ssd, dev, spec=TRAIN, name="train"):
+    """A training path at full width through ``TrainLoop.run`` (FLEXA
+    defaults, bf16 activations, ``spec``'s batch, sequence and steps,
+    depth cut to ``spec["layers"]`` where given): the step-1 check of
+    every tensor (``step1_check``), every loss finite, ``best_response``
+    and ``apply_update`` once per tensor per step and each SSD layer's
+    ``ssd_scan`` (twice, remat) and ``ssd_scan_bwd`` (once) by counter;
+    then one more step under the profiler, its launches by profiler equal
+    to the counters' and its device time by class (``device_classes``),
+    and one split by hand into forward, backward and optimizer.  Slice
+    3's main path is stablelm-3b (``TRAIN``), slice 13's mamba2-1.3b
+    (``TRAIN_SSM``), with zamba2-1.2b (``TRAIN_HYBRID``) and the moe, vlm
+    and encdec families (``TRAIN_FAMILIES``) beside it.  Returns the
+    run's launches by wrapper."""
     from repro_torch.config.base import TrainConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops as kops
     from repro_torch.models import transformer as T
     from repro_torch.train.loop import TrainLoop
 
-    cfg = get_config(TRAIN["arch"])
-    nb, seq, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    full = get_config(spec["arch"])
+    cfg = full.replace(num_layers=spec.get("layers", full.num_layers))
+    nb, seq, steps = spec["batch"], spec["seq"], spec["steps"]
     tcfg = TrainConfig(steps=steps, log_every=1)
     loop = TrainLoop(cfg, tcfg, batch=nb, seq_len=seq, device=dev)
     t = time.perf_counter()
-    n_checked, rel_t, rel_leaf = step1_check(torch, fp, kops, T, loop, cfg)
+    n_checked, per_step, rel_t, rel_leaf = step1_check(torch, fp, kops, T,
+                                                       loop, cfg)
     check_s = time.perf_counter() - t
-    per_step = cfg.num_layers * 9 + 3
-    check(n_checked == per_step, f"step-1 check saw {n_checked} tensors")
+    check(n_checked == per_step, f"step-1 check saw {n_checked} of "
+          f"{per_step} tensors")
+    ssd_step = ssd_per_step(cfg, tcfg.remat)
+    wrappers = {"best_response": fp.best_response,
+                "apply_update": fp.apply_update,
+                "ssd_scan": ssd.ssd_scan, "ssd_scan_bwd": ssd.ssd_scan_bwd}
+    want = {"best_response": per_step, "apply_update": per_step, **ssd_step}
 
     # the main path: counters to 0 just before, read just after
     torch.cuda.reset_peak_memory_stats()
     for k in (fp.best_response, fp.apply_update, fp.gather_rows,
               fp.scatter_rows, fp.batched_best_response,
-              fp.batched_apply_update):
+              fp.batched_apply_update, ssd.ssd_scan, ssd.ssd_scan_bwd):
         k.launches = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
     model, opt = loop.run()
     wall = time.perf_counter() - t
-    launches = fp.best_response.launches
-    apply_launches = fp.apply_update.launches
+    run = {k: w.launches for k, w in wrappers.items()}
+    launches = run["best_response"]
+    apply_launches = run["apply_update"]
     peak = torch.cuda.max_memory_allocated()
     losses = [m["loss"] for m in loop.metrics_log]
     step_s = [m["time"] for m in loop.metrics_log]
     check(len(losses) == steps and all(math.isfinite(v) for v in losses),
           f"losses {losses}")
-    check(launches == apply_launches == steps * per_step,
-          f"best_response launched {launches} times, apply_update "
-          f"{apply_launches}, in {steps} steps, want {steps * per_step}")
+    check(all(run[k] == steps * want[k] for k in want),
+          f"launches in {steps} steps: {run}, want {steps} × {want}")
 
-    # one more step under the profiler: launches and device time
-    torch.cuda.synchronize()
-    with profiled(torch) as prof:
-        t = time.perf_counter()
-        _, opt, _, m = loop.step_fn(model, opt, None, loop.batch(steps))
-        check(math.isfinite(float(m["loss"])), "profiled step: loss")
+    # one more step under the profiler: launches and device time.  The
+    # profiler can lose a device record (ROADMAP Queue 3, measurement):
+    # a profile whose launches fall short of the counters' is printed in
+    # ``short_profiles`` and the next step profiled, PROFILE_ATTEMPTS in all
+    timed = [k for k in wrappers if want[k]]
+    short = []
+    for attempt in range(PROFILE_ATTEMPTS):
+        before = {k: w.launches for k, w in wrappers.items()}
         torch.cuda.synchronize()
-        prof_s = time.perf_counter() - t
-    prof_launches = fp.best_response.launches - launches
-    prof_apply = fp.apply_update.launches - apply_launches
-    per_kernel, busy = device_kernels(torch, prof, {
-        k: KERNEL_NAMES[k] for k in ("best_response", "apply_update")})
+        with profiled(torch) as prof:
+            t = time.perf_counter()
+            _, opt, _, m = loop.step_fn(model, opt, None,
+                                        loop.batch(steps + attempt))
+            check(math.isfinite(float(m["loss"])), "profiled step: loss")
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t
+        prof_n = {k: w.launches - before[k] for k, w in wrappers.items()}
+        per_kernel, busy = device_kernels(
+            torch, prof, {k: KERNEL_NAMES[k] for k in timed})
+        if (all(per_kernel[k][0] == prof_n[k] for k in timed)
+                or attempt == PROFILE_ATTEMPTS - 1):
+            break
+        short.append({"profiler": {k: per_kernel[k][0] for k in timed},
+                      "counter": prof_n,
+                      "records_by_kernel": top_kernels(torch, prof, n=1000,
+                                                       only=[
+                          sub for k in timed if per_kernel[k][0] != prof_n[k]
+                          for sub in KERNEL_NAMES[k]])})
+        del prof
     top = top_kernels(torch, prof)
+    classes = device_classes(torch, prof)
     edges, records = window_edges(torch, prof)
     del prof
     # one more step split by hand: forward, backward, optimizer
@@ -2275,15 +2496,21 @@ def phase_train(torch, fp, dev):
     torch.cuda.synchronize()
     split["optimizer_ms"] = (time.perf_counter() - t) * 1e3
     del grads, loss
-    check(per_kernel["best_response"][0] == prof_launches == per_step
-          and per_kernel["apply_update"][0] == prof_apply == per_step,
-          f"launches in the profiled step: best_response profiler "
-          f"{per_kernel['best_response'][0]}, counter {prof_launches}; "
-          f"apply_update profiler {per_kernel['apply_update'][0]}, counter "
-          f"{prof_apply}; want {per_step} ({records} device records; "
-          f"first and last {edges} ms inside the step)")
+    check(all(per_kernel[k][0] == prof_n[k] == want[k] for k in timed),
+          f"launches in the profiled step: profiler "
+          f"{ {k: per_kernel[k][0] for k in timed} }, counter {prof_n}; "
+          f"want {want} ({records} device records; first and last {edges} "
+          f"ms inside the step)")
+    ssd_fields = {} if not ssd_step["ssd_scan"] else dict(
+        ssd_launches_per_step=ssd_step,
+        ssd_profiler_launches={k: per_kernel[k][0]
+                               for k in ("ssd_scan", "ssd_scan_bwd")},
+        ssd_scan_device_ms_per_step=round(per_kernel["ssd_scan"][1], 4),
+        ssd_scan_bwd_device_ms_per_step=round(
+            per_kernel["ssd_scan_bwd"][1], 4))
     steady = step_s[1:]
-    say("train", arch=cfg.name, layers=cfg.num_layers, batch=nb, seq=seq,
+    say(name, arch=cfg.name, family=cfg.family, layers=cfg.num_layers,
+        layers_of=full.num_layers, batch=nb, seq=seq,
         dtype=cfg.dtype, optimizer=tcfg.optimizer, steps=steps,
         params=sum(p.numel() for p in model.parameters()),
         losses=losses, step_ms=[round(v * 1e3, 3) for v in step_s],
@@ -2295,7 +2522,9 @@ def phase_train(torch, fp, dev):
                   "gather_rows": fp.gather_rows.launches,
                   "scatter_rows": fp.scatter_rows.launches,
                   "batched_best_response": fp.batched_best_response.launches,
-                  "batched_apply_update": fp.batched_apply_update.launches},
+                  "batched_apply_update": fp.batched_apply_update.launches,
+                  "ssd_scan": run["ssd_scan"],
+                  "ssd_scan_bwd": run["ssd_scan_bwd"]},
         launches_per_step=per_step,
         profiled_step_ms=round(prof_s * 1e3, 3),
         best_response_device_ms_per_step=round(
@@ -2307,16 +2536,19 @@ def phase_train(torch, fp, dev):
         device_busy_ms=round(busy[1], 3),
         device_busy_share=busy[1] / (prof_s * 1e3),
         profiled_step_device_records=records,
-        profiled_step_edges_ms=edges,
+        profiled_step_edges_ms=edges, short_profiles=short,
+        device_ms_by_class=classes,
+        matmul_bound_ms=matmul_bound_ms(cfg, model, nb * seq, tcfg.remat),
         top_device_kernels=top,
         split_step_ms={k: round(v, 3) for k, v in split.items()},
         sel_frac=float(m["flexa/sel_frac"]),
         tau_mean=float(m["flexa/tau_mean"]),
         step1_tensors_checked=n_checked, step1_e2_max_rel_err=rel_t,
-        step1_leaf_e2_max_rel_err=rel_leaf, step1_check_s=round(check_s, 2))
+        step1_leaf_e2_max_rel_err=rel_leaf, step1_check_s=round(check_s, 2),
+        **ssd_fields)
     del model, opt, loop
     torch.cuda.empty_cache()
-    return launches, apply_launches
+    return run
 
 
 def phase_descent(torch, dev):
@@ -2384,6 +2616,87 @@ def ssd_work(shape, itemsize):
     return 2 * g_fma, 2 * rest_fma, nbytes
 
 
+def ssd_bwd_work(shape, itemsize):
+    """(FLOPs of the products with bf16 factors only, FLOPs of those with
+    an fp32 factor, bytes) an ssd_scan_bwd call needs at ``shape``.  Per
+    (batch row, chunk) G = C·Bᵀ over the lower triangle; per head Q =
+    dy·xᵀ over it (both bf16 × bf16), and with an fp32 factor dx's and
+    dB's and dC's intra-chunk products (W·dy, Vᵀ·C, V·B over the
+    triangle) and the four state products (dH = Σ e^s C dyᵀ, dhᵀ·B, dh·x,
+    h_prev·dy, each L·N·P).  Bytes: x, B, C, dy in the activation dtype,
+    dt, A and the forward's scratch (the entering states and the cumsums)
+    read once; dx, dB, dC, ddt, dA written once."""
+    Bt, S, H, P, N, L = shape
+    exact = split = 0
+    for c0 in range(0, S, L):
+        lc = min(L, S - c0)
+        tri = lc * (lc + 1) // 2
+        exact += Bt * tri * N + Bt * H * tri * P
+        split += Bt * H * (tri * (P + 2 * N) + 4 * lc * N * P)
+    nc = -(-S // L)
+    act = 2 * Bt * S * H * P + 2 * Bt * S * N
+    nbytes = (2 * act * itemsize + 2 * (Bt * S * H * 4) + 2 * H * 4
+              + Bt * nc * H * (N * P + L) * 4)
+    return 2 * exact, 2 * split, nbytes
+
+
+def ssd_bwd_row(torch, ssd, launches, err, by_path, dev):
+    """ssd_scan_bwd at the train path's per-layer shape (mamba2-1.3b, 2 ×
+    4096, bf16, x/B/C strided as the mixer passes them, no dh_final as
+    training gives none) and at zamba2-1.2b's N 64; device times from CUDA
+    events around back-to-back eager launches.  The bound by operations
+    is the lesser of the tensor cores' (the bf16 × bf16 products at the
+    bf16 rate, each product with an fp32 factor as three exact bf16
+    products: ``split_ops_ms``) and the CUDA cores' fp32 rate
+    (``fp32_ops_ms``); ``bound_ms`` is the larger of that and the bytes'
+    time."""
+    timed = {}
+    for key, shape in (("train", SSD_TRAIN), ("zamba2-1.2b",
+                                               SSD_TRAIN_ZAMBA)):
+        args, dy, _ = ssd_bwd_args(torch, shape, torch.bfloat16, 31, dev,
+                                   strided=True, dh=False, overflow=False)
+        chunk = shape[-1]
+        scratch = ssd.ssd_scan(*args, chunk=chunk, keep_scratch=True)[2]
+        exact, split, nbytes = ssd_bwd_work(shape, 2)
+        t_split = (exact + 3 * split) / BF16_OPS_PER_S * 1e3
+        t_fp32 = (exact + split) / FP32_OPS_PER_S * 1e3
+        t_bytes, t_ops = bytes_ms(nbytes), min(t_split, t_fp32)
+        timed[key] = {
+            "shape": list(shape),
+            "ms": cuda_ms(torch, lambda: ssd.ssd_scan_bwd(
+                *args, dy, None, chunk=chunk, scratch=scratch), reps=5),
+            "plain_ms": cuda_ms(torch, lambda: ssd.ssd_scan_bwd.plain(
+                *args, dy, None, chunk=chunk), reps=3),
+            "forward_ms": cuda_ms(torch, lambda: ssd.ssd_scan(
+                *args, chunk=chunk), reps=5),
+            "flops": exact + split, "bytes": nbytes, "bytes_ms": t_bytes,
+            "split_ops_ms": t_split, "fp32_ops_ms": t_fp32,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        del args, dy, scratch
+        torch.cuda.empty_cache()
+    t = timed["train"]
+    return {"name": "ssd_scan_bwd", "route": "cuda",
+            "source": SOURCES["ssd_scan_bwd"],
+            "replaces": REPLACES["ssd_scan_bwd"],
+            "replaces_note": "the gradient of that kernel, which has no "
+                             "VJP there (the JAX package differentiates "
+                             "its jnp oracle)",
+            "launches": launches, "launches_by_path": by_path,
+            "max_abs_err": err,
+            "ms": round(t["ms"], 5), "plain_ms": round(t["plain_ms"], 5),
+            "bound_ms": round(t["bound_ms"], 5), "bound_by": t["bound_by"],
+            # no single PyTorch call computes the scan's gradient
+            "library_ms": None,
+            "split_ops_ms": round(t["split_ops_ms"], 5),
+            "fp32_ops_ms": round(t["fp32_ops_ms"], 5),
+            "shape": "x (2, 4096, 64, 64) bf16, B/C (2, 4096, 128), "
+                     "chunk 256, dy, no dh_final",
+            "timed": {k: {kk: (round(vv, 5) if isinstance(vv, float)
+                               else vv) for kk, vv in v.items()}
+                      for k, v in timed.items()}}
+
+
 def br_row(torch, fp, launches, err, dev):
     """best_response at the train path's shapes: stablelm-3b's lm_head
     (50304, 2560) and its largest layer tensor, mlp.w1 (2560, 6912), fp32
@@ -2444,7 +2757,7 @@ def br_row(torch, fp, launches, err, dev):
 
 def kernel_line(torch, fp, ssd, fa, r, launches, serve_launches, err,
                 cbr_state, gs_sweep, family_launches, vlm_encdec_launches,
-                dev):
+                train_ssd, dev):
     """Each kernel timed at the path's largest shapes: the gather of Aᵀ
     at the widest bucket K (a full bucket, so ``index_select`` computes
     the same function), and the scatter of K values into (n, 1).
@@ -2516,8 +2829,16 @@ def kernel_line(torch, fp, ssd, fa, r, launches, serve_launches, err,
             by_path[name][f"serve_families {arch}"] = count
     for arch, n in vlm_encdec_launches.items():
         by_path["flash_attention"][f"serve_vlm_encdec {arch}"] = n
+    # the train paths' launches of the scan and its backward
+    bwd_path = {}
+    for path, n in train_ssd.items():
+        by_path["ssd_scan"][path] = n["ssd_scan"]
+        bwd_path[path] = n["ssd_scan_bwd"]
     rows.append(ssd_row(torch, ssd, serve_launches, err["ssd_scan"],
                         by_path["ssd_scan"], dev))
+    rows.append(ssd_bwd_row(
+        torch, ssd, train_ssd[f"train_ssm {TRAIN_SSM['arch']}"][
+            "ssd_scan_bwd"], err["ssd_scan_bwd"], bwd_path, dev))
     rows.append(br_row(torch, fp, launches["best_response"],
                        err["best_response"], dev))
     rows.append(fa_row(torch, fa, launches["flash_attention"],
@@ -2903,14 +3224,24 @@ def main() -> int:
         phase = "serve_vlm_encdec"
         vlm_encdec_launches = phase_serve_vlm_encdec(torch, fa, dev)
         phase = "train"
-        launches["best_response"], launches["apply_update"] = phase_train(
-            torch, fp, dev)
+        run = phase_train(torch, fp, ssd, dev)
+        launches["best_response"] = run["best_response"]
+        launches["apply_update"] = run["apply_update"]
+        phase = "train_ssm"
+        train_ssd = {f"train_ssm {TRAIN_SSM['arch']}": phase_train(
+            torch, fp, ssd, dev, TRAIN_SSM, "train_ssm")}
+        phase = "train_hybrid"
+        train_ssd[f"train_hybrid {TRAIN_HYBRID['arch']}"] = phase_train(
+            torch, fp, ssd, dev, TRAIN_HYBRID, "train_hybrid")
+        phase = "train_families"
+        for spec in TRAIN_FAMILIES:
+            phase_train(torch, fp, ssd, dev, spec, "train_families")
         phase = "descent"
         phase_descent(torch, dev)
         phase = "kernel timing"
         rows = kernel_line(torch, fp, ssd, fa, r, launches, serve_launches,
                            err, cbr_state, gs_sweep, family_launches,
-                           vlm_encdec_launches, dev)
+                           vlm_encdec_launches, train_ssd, dev)
     except Exception as exc:                          # report and fail
         print(f"FAIL {phase}: {type(exc).__name__}: {exc}", flush=True)
         raise

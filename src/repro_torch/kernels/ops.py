@@ -206,6 +206,27 @@ def gauss_seidel_sweep(At: torch.Tensor, colsq: torch.Tensor,
     raise ValueError(f"no gauss_seidel_sweep kernel for device {x.device}")
 
 
+class _SSDScan(torch.autograd.Function):
+    """The CUDA scan under autograd: the forward kernel, which keeps its
+    scratch (the state entering every chunk and the chunks' cumsums), and
+    the backward kernel, which reads it."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        y, h, scratch = _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk,
+                                      keep_scratch=True)
+        ctx.save_for_backward(x, dt, A, B, C, scratch)
+        ctx.chunk = chunk
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, A, B, C, scratch = ctx.saved_tensors
+        grads = _ssd.ssd_scan_bwd(x, dt, A, B, C, dy, dh, chunk=ctx.chunk,
+                                  scratch=scratch)
+        return (*grads, None)
+
+
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 64):
     """Mamba2 SSD chunked scan → (y in x's dtype, final state fp32).
 
@@ -213,12 +234,18 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64):
     not be a multiple of ``chunk``: the plain version pads with dt = 0
     as the reference does (:func:`~repro_torch.kernels.ref.ssd_scan_ragged`),
     and the CUDA kernel masks the ragged chunk itself.
+
+    Differentiable: on the CPU autograd differentiates the plain version;
+    on the card the scan runs through :class:`_SSDScan` (the CUDA
+    forward, then the CUDA ``ssd_scan_bwd``), which without grad
+    (serving, ``inference_mode``) records nothing and is the forward's
+    one launch.
     """
     _on(x.device, dt, A, B, C)
     if x.device.type == "cpu":
         return ref.ssd_scan_ragged(x, dt, A, B, C, chunk=chunk)
     if x.device.type == "cuda":
-        return _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
+        return _SSDScan.apply(x, dt, A, B, C, chunk)
     raise ValueError(f"no ssd_scan kernel for device {x.device}")
 
 

@@ -19,9 +19,11 @@ order.  ``gauss_seidel_sweep_ref`` is the contract of
 dot products.  ``ssd_scan_ref`` is the
 contract of :mod:`repro_torch.kernels.ssd_scan` up to summation order;
 ``ssd_scan_ragged`` runs it on any S, padded as the reference's
-dispatch pads; ``ssd_decode_ref`` is the single-token step, which has no
-kernel.  ``flash_attention_ref`` is the contract of
-:mod:`repro_torch.kernels.flash_attention` up to summation order.  The
+dispatch pads, and ``ssd_scan_bwd`` (autograd of it) is the contract of
+``ssd_scan.ssd_scan_bwd`` up to summation order; ``ssd_decode_ref`` is
+the single-token step, which has no kernel.  ``flash_attention_ref`` is
+the contract of :mod:`repro_torch.kernels.flash_attention` up to
+summation order.  The
 dispatch (:mod:`repro_torch.kernels.ops`) runs these for tensors on the
 CPU only.
 """
@@ -324,6 +326,24 @@ def ssd_scan_ragged(x, dt, A, B, C, *, chunk: int):
         return torch.nn.functional.pad(t, [0, 0] * (t.dim() - 2) + [0, pad])
     y, h = ssd_scan_ref(padw(x), padw(dt), A, padw(B), padw(C), chunk=chunk)
     return y[:, :S], h
+
+
+def ssd_scan_bwd(x, dt, A, B, C, dy, dh_final=None, *, chunk: int):
+    """Gradients of :func:`ssd_scan_ragged` → (dx, ddt, dA, dB, dC), by
+    ``torch.autograd``, given dy (the gradient of y, in x's dtype) and
+    ``dh_final`` (of the final state, fp32; None for zero).  dx, dB, dC
+    come back in the inputs' dtype, ddt and dA in fp32.  The forward
+    masks the decay with −inf before the exp, so the gradients stay
+    finite where exp(s_t − s_u), u > t, would overflow (chunk 256,
+    A = −16)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x, dt, A, B, C)]
+        y, h = ssd_scan_ragged(*ins, chunk=chunk)
+        outs, grads = [y], [dy.to(y.dtype)]
+        if dh_final is not None:
+            outs.append(h)
+            grads.append(dh_final.to(h.dtype))
+        return torch.autograd.grad(outs, ins, grads)
 
 
 def ssd_decode_ref(x_t, dt_t, A, B_t, C_t, h):

@@ -47,7 +47,8 @@ from repro_torch.models import layers as L
 
 class MoEParams(nn.Module):
     """``init_moe_params``' tree: ``router`` (d, E) and the expert
-    weights ``w1``, ``w3`` (E, d, d_ff) and ``w2`` (E, d_ff, d), fp32.
+    weights ``w1``, ``w3`` (E, d, d_ff) and ``w2`` (E, d_ff, d), fp32,
+    requiring grad.
 
     ``drop_log``: None, or a list to which each :func:`moe_layer` call on
     these weights appends (dropped pairs as a 0-d device tensor, pairs
@@ -59,8 +60,7 @@ class MoEParams(nn.Module):
 
         def param(*shape):
             return nn.Parameter(torch.zeros(shape, dtype=torch.float32,
-                                            device=device),
-                                requires_grad=False)
+                                            device=device))
         self.router = param(d, e)
         self.w1 = param(e, d, f)
         self.w3 = param(e, d, f)
@@ -108,12 +108,17 @@ class Routing(NamedTuple):
     aux: torch.Tensor
 
 
-def route(x: torch.Tensor, p: MoEParams, cfg: ModelConfig, cap: int
-          ) -> Routing:
-    """The reference's routing of x (T, D) at capacity ``cap``."""
+def route(x: torch.Tensor, p: MoEParams, cfg: ModelConfig, cap: int,
+          router: torch.Tensor | None = None) -> Routing:
+    """The reference's routing of x (T, D) at capacity ``cap``, by
+    ``router`` (the router weights in x's dtype; the cached cast of
+    ``p.router`` when None).  The gates and the aux loss carry gradient to
+    the router; the ids, places and drops are integers."""
     T = x.shape[0]
     E, k = cfg.num_experts, cfg.moe_top_k
-    logits = (x @ L.cast_param(p, "router", x.dtype)).to(torch.float32)
+    if router is None:
+        router = L.cast_param(p, "router", x.dtype)
+    logits = (x @ router).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)                      # (T, E)
     gates, ids = _top_k(probs, k)                              # (T, k)
     gates = gates / torch.sum(gates, dim=-1, keepdim=True)
@@ -134,14 +139,19 @@ def route(x: torch.Tensor, p: MoEParams, cfg: ModelConfig, cap: int
     return Routing(ids, gates, pos, keep, aux)
 
 
-def _moe_local(x: torch.Tensor, p: MoEParams, cfg: ModelConfig, cap: int):
+def _moe_local(x: torch.Tensor, p: MoEParams, cfg: ModelConfig, cap: int,
+               weight):
     """The reference's ``_moe_local`` over all experts: x (T, D) →
-    (combine (T, D) in x's dtype, aux loss fp32 0-d)."""
+    (combine (T, D) in x's dtype, aux loss fp32 0-d); ``weight(name)``
+    gives ``router``, ``w1``, ``w3``, ``w2`` in x's dtype.  Gradient
+    reaches the router through the gates, which ``gbuf`` carries into
+    the combine, and through the aux loss; a dropped pair's gate is 0
+    and gets none."""
     T, D = x.shape
     E, k = cfg.num_experts, cfg.moe_top_k
     dt = x.dtype
     dev = x.device
-    r = route(x, p, cfg, cap)
+    r = route(x, p, cfg, cap, weight("router"))
     flat_e, pos, keep = r.ids.reshape(-1), r.pos, r.keep
     if p.drop_log is not None:
         p.drop_log.append((T * k - keep.sum(), T * k))
@@ -156,7 +166,7 @@ def _moe_local(x: torch.Tensor, p: MoEParams, cfg: ModelConfig, cap: int):
 
     x_pad = torch.cat([x, torch.zeros((1, D), dtype=dt, device=dev)])
     xg = x_pad[buf]                                            # (E, C, D)
-    w1, w3, w2 = (L.cast_param(p, n, dt) for n in ("w1", "w3", "w2"))
+    w1, w3, w2 = (weight(n) for n in ("w1", "w3", "w2"))
     a = torch.bmm(xg, w1)
     h = a * torch.sigmoid(a) * torch.bmm(xg, w3)       # silu as XLA forms it
     out = torch.bmm(h, w2) * gbuf[..., None].to(dt)            # (E, C, D)
@@ -172,10 +182,20 @@ def _moe_local(x: torch.Tensor, p: MoEParams, cfg: ModelConfig, cap: int):
     return y.to(dt), r.aux
 
 
-def moe_layer(p: MoEParams, x: torch.Tensor, cfg: ModelConfig):
+def moe_layer(p: MoEParams, x: torch.Tensor, cfg: ModelConfig, *,
+              cached: bool = False):
     """MoE FFN over x: (B, S, D) → (y (B, S, D), aux loss), all B·S
-    tokens routed together at capacity ``capacity(B·S, cfg)``; weights
-    cast through the cached :func:`L.cast_param`."""
+    tokens routed together at capacity ``capacity(B·S, cfg)``.  Weights
+    are cast to x's dtype through autograd (:func:`L.cast`), as training
+    wants, or with ``cached`` (serving) through the cached
+    :func:`L.cast_param`."""
     B, S, D = x.shape
-    y, aux = _moe_local(x.reshape(B * S, D), p, cfg, capacity(B * S, cfg))
+    if cached:
+        def weight(name):
+            return L.cast_param(p, name, x.dtype)
+    else:
+        def weight(name):
+            return L.cast(getattr(p, name), x.dtype)
+    y, aux = _moe_local(x.reshape(B * S, D), p, cfg, capacity(B * S, cfg),
+                        weight)
     return y.reshape(B, S, D), aux

@@ -9,8 +9,13 @@ per token.
 
 :class:`SSMMixer` holds the reference's parameter dict as fp32
 parameters of the same names and shapes (``w_in``/``w_out`` in the
-reference's (in, out) layout); :func:`ssm_layer` and :func:`ssm_decode`
-are the reference's functions, with the mixer in place of the dict.
+reference's (in, out) layout), all requiring grad; :func:`ssm_layer`
+and :func:`ssm_decode` are the reference's functions, with the mixer in
+place of the dict.  :func:`ssm_layer` is the training forward: it casts
+``w_in`` and ``w_out`` through autograd (:func:`L.cast`), and its scan
+is differentiable (on the card the CUDA ``ssd_scan`` forward and its
+CUDA backward).  Serving's :func:`ssm_prefill` and :func:`ssm_decode`
+cast through the cached :func:`L.cast_param`.
 """
 from __future__ import annotations
 
@@ -34,8 +39,7 @@ class SSMMixer(nn.Module):
 
         def param(*shape):
             return nn.Parameter(torch.zeros(shape, dtype=torch.float32,
-                                            device=device),
-                                requires_grad=False)
+                                            device=device))
         # in_proj → [z (din) | x (din) | B (N) | C (N) | dt (nh)]
         self.w_in = param(d, 2 * din + 2 * N + nh)
         self.conv_w = param(cfg.ssm_conv_width, conv_ch)
@@ -105,36 +109,48 @@ def _scan_inputs(mixer: SSMMixer, xBC: torch.Tensor, dt_raw: torch.Tensor,
 
 
 def _gate_out(mixer: SSMMixer, y: torch.Tensor, xh: torch.Tensor,
-              z: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """D skip, gated RMSNorm, out_proj."""
+              z: torch.Tensor, cfg: ModelConfig, w_out: torch.Tensor
+              ) -> torch.Tensor:
+    """D skip, gated RMSNorm, out_proj by ``w_out`` (in y's dtype)."""
     D = mixer.D.to(y.dtype).view(*([1] * (y.dim() - 2)), -1, 1)
     y = y + D * xh.to(y.dtype)
     y = y.reshape(*y.shape[:-2], cfg.d_inner)
     y = L.rms_norm(y * F.silu(z), mixer.norm_scale, cfg.norm_eps)
-    return y @ L.cast_param(mixer, "w_out", y.dtype)
+    return y @ w_out
+
+
+def _mixer(mixer: SSMMixer, x: torch.Tensor, cfg: ModelConfig, weight):
+    """The SSD block over x (B, S, d_model), ``weight(name)`` giving
+    ``w_in`` / ``w_out`` in x's dtype → (out, raw xBC, final state)."""
+    proj = x @ weight("w_in")
+    z, xBC_raw, dt_raw = _split_proj(cfg, proj)
+    xBC = _causal_conv(xBC_raw, mixer.conv_w, mixer.conv_b)
+    xh, dt, A, Bm, Cm = _scan_inputs(mixer, xBC, dt_raw, cfg)
+    y, h_final = kops.ssd_scan(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
+    return _gate_out(mixer, y, xh, z, cfg, weight("w_out")), xBC_raw, \
+        h_final
 
 
 def ssm_prefill(mixer: SSMMixer, x: torch.Tensor, cfg: ModelConfig):
-    """SSD block over x (B, S, d_model) → (out, decode cache entry).
+    """SSD block over x (B, S, d_model) → (out, decode cache entry), the
+    weights cast through the cached :func:`L.cast_param`.
 
     The entry is the raw (pre-conv) xBC of the last K−1 positions and the
     scan's final state, as the reference's ``_ssm_prefill_layer`` keeps.
     """
     S = x.shape[1]
-    proj = x @ L.cast_param(mixer, "w_in", x.dtype)
-    z, xBC, dt_raw = _split_proj(cfg, proj)
+    out, xBC, h_final = _mixer(
+        mixer, x, cfg, lambda name: L.cast_param(mixer, name, x.dtype))
     conv_tail = xBC[:, S - (cfg.ssm_conv_width - 1):, :].clone()
-    xBC = _causal_conv(xBC, mixer.conv_w, mixer.conv_b)
-    xh, dt, A, Bm, Cm = _scan_inputs(mixer, xBC, dt_raw, cfg)
-    y, h_final = kops.ssd_scan(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
-    return _gate_out(mixer, y, xh, z, cfg), {"conv": conv_tail,
-                                              "ssm": h_final}
+    return out, {"conv": conv_tail, "ssm": h_final}
 
 
 def ssm_layer(mixer: SSMMixer, x: torch.Tensor, cfg: ModelConfig
               ) -> torch.Tensor:
-    """Prefill/forward SSD block over x: (B, S, d_model)."""
-    return ssm_prefill(mixer, x, cfg)[0]
+    """Training/forward SSD block over x: (B, S, d_model), ``w_in`` and
+    ``w_out`` cast through autograd."""
+    return _mixer(mixer, x, cfg,
+                  lambda name: L.cast(getattr(mixer, name), x.dtype))[0]
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, *, device) -> dict:
@@ -162,6 +178,7 @@ def ssm_decode(mixer: SSMMixer, x: torch.Tensor, cache: dict,
     xBC_t = F.silu(conv_out + mixer.conv_b[None, :]).to(x.dtype)
     xh, dt, A, Bm, Cm = _scan_inputs(mixer, xBC_t, dt_raw, cfg)
     y, h_new = kops.ssd_decode(xh, dt, A, Bm, Cm, cache["ssm"])
-    out = _gate_out(mixer, y, xh, z, cfg)[:, None, :]
+    out = _gate_out(mixer, y, xh, z, cfg,
+                    L.cast_param(mixer, "w_out", y.dtype))[:, None, :]
     return out, {"conv": window[:, 1:, :], "ssm": h_new}
 

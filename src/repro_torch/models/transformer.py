@@ -1,7 +1,6 @@
-"""Model assembly, as ``repro.models.transformer``, for the ``dense``
-family (training and serving) and the ``ssm`` (attention-free Mamba2),
-``hybrid`` (Zamba2), ``moe``, ``vlm`` (Qwen2-VL) and ``encdec``
-(Seamless) families (serving):
+"""Model assembly, as ``repro.models.transformer``, for the ``dense``,
+``ssm`` (attention-free Mamba2), ``hybrid`` (Zamba2), ``moe``, ``vlm``
+(Qwen2-VL) and ``encdec`` (Seamless) families, training and serving:
 
   init_params(cfg, generator=, device=)       → DenseLM | Mamba2LM |
                                                 HybridLM | MoeLM | EncDecLM
@@ -20,10 +19,15 @@ The reference's stacked layer parameters under ``lax.scan`` become an
 into the reference's leaves (the 32 layers' ``wq`` are one leaf), in the
 reference's flatten order, for the optimizer and the checkpoint.
 
-Training (``dense``): parameters require grad, weights are cast to the
-activation dtype through autograd at each use, and with ``remat`` each
-layer runs under ``torch.utils.checkpoint`` as the reference's ``_rscan``
-wraps its body in ``jax.checkpoint``; attention is ``chunked_attention``.
+Training (every family): parameters require grad, weights are cast to
+the activation dtype through autograd at each use, and with ``remat``
+each layer (and each application of the hybrid's shared block) runs
+under ``torch.utils.checkpoint`` as the reference's ``_rscan`` wraps its
+body in ``jax.checkpoint``; attention is ``chunked_attention``, each SSD
+layer's scan ``kops.ssd_scan`` (on the card the CUDA forward and its
+CUDA backward), the MoE FFN ``moe_layer`` with gradient to the router
+through the gates and the aux loss (``loss_fn`` adds ``AUX_WEIGHT`` ×
+the layers' sum, as the reference does).
 Serving (every family): the entry points run under
 ``torch.inference_mode`` and cast weights through the cached
 ``L.cast_param``.  Prefill runs each attention through the
@@ -49,10 +53,6 @@ decode writes each new token's k and v into the cache in place.
   encoder's output with no rope, MLP).  Its cache holds ``self_k`` /
   ``self_v`` (L, B, Hkv, S, dh) and ``cross_k`` / ``cross_v`` (L, B,
   Hkv, Se, dh), read-only in decode.
-
-Training ``ssm`` and ``hybrid`` needs a backward of the ``ssd_scan``
-kernel, which no package has yet; training ``moe``, ``vlm`` and
-``encdec`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -83,8 +83,7 @@ def _require_ported(cfg: ModelConfig) -> None:
 
 
 def _ones(n: int, device) -> nn.Parameter:
-    return nn.Parameter(torch.ones(n, dtype=torch.float32, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.ones(n, dtype=torch.float32, device=device))
 
 
 class SSMBlock(nn.Module):
@@ -96,24 +95,21 @@ class SSMBlock(nn.Module):
         self.ssm = SSM.SSMMixer(cfg, device=device)
 
 
-def _tables(model: nn.Module, cfg: ModelConfig, device,
-            requires_grad: bool) -> None:
+def _tables(model: nn.Module, cfg: ModelConfig, device) -> None:
     """The embedding table, the final norm and, when untied, ``lm_head``."""
-    def param(t):
-        return nn.Parameter(t, requires_grad=requires_grad)
     shape = (cfg.vocab_size, cfg.d_model)
-    model.embed = param(torch.zeros(shape, dtype=torch.float32,
-                                    device=device))
-    model.final_norm = param(torch.ones(cfg.d_model, dtype=torch.float32,
-                                        device=device))
+    model.embed = nn.Parameter(torch.zeros(shape, dtype=torch.float32,
+                                           device=device))
+    model.final_norm = _ones(cfg.d_model, device)
     if not cfg.tie_embeddings:
-        model.lm_head = param(torch.zeros(shape, dtype=torch.float32,
-                                          device=device))
+        model.lm_head = nn.Parameter(torch.zeros(shape, dtype=torch.float32,
+                                                 device=device))
 
 
 class Mamba2LM(nn.Module):
     """Embedding table, ``layers`` (an ``nn.ModuleList`` of
-    :class:`SSMBlock`), final norm and, when untied, ``lm_head``."""
+    :class:`SSMBlock`), final norm and, when untied, ``lm_head``; every
+    parameter requires grad."""
 
     family = "ssm"
 
@@ -123,7 +119,7 @@ class Mamba2LM(nn.Module):
         if cfg.family != self.family:
             raise ValueError(f"{type(self).__name__} builds the "
                              f"{self.family} family, not {cfg.family!r}")
-        _tables(self, cfg, device, requires_grad=False)
+        _tables(self, cfg, device)
         self.layers = nn.ModuleList(SSMBlock(cfg, device=device)
                                     for _ in range(cfg.num_layers))
 
@@ -168,7 +164,7 @@ class DenseLM(nn.Module):
         if cfg.family not in ("dense", "vlm"):
             raise ValueError(f"DenseLM builds the dense and vlm families, "
                              f"not {cfg.family!r}")
-        _tables(self, cfg, device, requires_grad=True)
+        _tables(self, cfg, device)
         self.layers = nn.ModuleList(DenseBlock(cfg, device=device)
                                     for _ in range(cfg.num_layers))
 
@@ -176,13 +172,13 @@ class DenseLM(nn.Module):
 class HybridLM(Mamba2LM):
     """A :class:`Mamba2LM` plus ``shared``: the one :class:`DenseBlock`
     applied after each group of ``attn_every`` layers (the reference's
-    ``params["shared"]``).  Serving only: no parameter requires grad."""
+    ``params["shared"]``), whose gradient sums over its applications."""
 
     family = "hybrid"
 
     def __init__(self, cfg: ModelConfig, *, device):
         super().__init__(cfg, device=device)
-        self.shared = DenseBlock(cfg, device=device).requires_grad_(False)
+        self.shared = DenseBlock(cfg, device=device)
 
 
 class MoEBlock(nn.Module):
@@ -200,18 +196,17 @@ class MoEBlock(nn.Module):
 
 class MoeLM(nn.Module):
     """Embedding table, ``layers`` (an ``nn.ModuleList`` of
-    :class:`MoEBlock`), final norm and, when untied, ``lm_head``.
-    Serving only: no parameter requires grad."""
+    :class:`MoEBlock`), final norm and, when untied, ``lm_head``; every
+    parameter requires grad."""
 
     def __init__(self, cfg: ModelConfig, *, device):
         super().__init__()
         if cfg.family != "moe":
             raise ValueError(f"MoeLM builds the moe family, not "
                              f"{cfg.family!r}")
-        _tables(self, cfg, device, requires_grad=False)
+        _tables(self, cfg, device)
         self.layers = nn.ModuleList(MoEBlock(cfg, device=device)
                                     for _ in range(cfg.num_layers))
-        self.requires_grad_(False)
 
 
 class CrossBlock(nn.Module):
@@ -232,20 +227,19 @@ class CrossBlock(nn.Module):
 class EncDecLM(nn.Module):
     """Embedding table, final norm, ``lm_head`` when untied,
     ``enc_layers`` (``cfg.enc_layers`` :class:`DenseBlock`) and
-    ``dec_layers`` (``cfg.num_layers`` :class:`CrossBlock`).  Serving
-    only: no parameter requires grad."""
+    ``dec_layers`` (``cfg.num_layers`` :class:`CrossBlock`); every
+    parameter requires grad."""
 
     def __init__(self, cfg: ModelConfig, *, device):
         super().__init__()
         if cfg.family != "encdec":
             raise ValueError(f"EncDecLM builds the encdec family, not "
                              f"{cfg.family!r}")
-        _tables(self, cfg, device, requires_grad=False)
+        _tables(self, cfg, device)
         self.enc_layers = nn.ModuleList(DenseBlock(cfg, device=device)
                                         for _ in range(cfg.enc_layers))
         self.dec_layers = nn.ModuleList(CrossBlock(cfg, device=device)
                                         for _ in range(cfg.num_layers))
-        self.requires_grad_(False)
 
 
 _MODELS = {"dense": DenseLM, "ssm": Mamba2LM, "hybrid": HybridLM,
@@ -495,59 +489,51 @@ def _enc_embeds(cfg: ModelConfig, batch: dict, model: nn.Module
     return enc.to(device=model.embed.device, dtype=act_dtype(cfg))
 
 
-@torch.inference_mode()
-def _served_forward_hidden(cfg: ModelConfig, model: nn.Module, batch: dict):
-    """``forward_hidden`` of the families served only (ssm, hybrid,
-    moe, encdec)."""
-    tokens = _tokens(batch["tokens"], model)
-    B, S = tokens.shape
-    x = L.embed(tokens, model.embed, act_dtype(cfg))
-    positions = _positions(B, S, x.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if cfg.family == "encdec":
-        enc = _enc_embeds(cfg, batch, model)
-        epos = _positions(B, enc.shape[1], x.device)
-        for blk in model.enc_layers:
-            enc = _dense_block(blk, enc, epos, cfg, causal=False)
-        for blk in model.dec_layers:
-            x = _cross_block(blk, x, positions, enc, cfg)
-        return L.rms_norm(x, model.final_norm, cfg.norm_eps), aux
-    for li, blk in enumerate(model.layers):
-        if cfg.family == "moe":
-            x, a = _moe_block(blk, x, positions, cfg)
-            aux = aux + a
-            continue
-        x = _ssm_block(blk, x, cfg)
-        if _shared_group(cfg, li) is not None:
-            x = _dense_block(model.shared, x, positions, cfg)
-    return L.rms_norm(x, model.final_norm, cfg.norm_eps), aux
-
-
 def forward_hidden(cfg: ModelConfig, model: nn.Module, batch: dict, *,
                    remat: bool = False):
     """Full-sequence forward up to the final norm → (hidden, aux loss;
-    the sum of the layers' for ``moe``, else 0).
+    the sum of the layers' for ``moe``, else 0), differentiable for every
+    family.
 
-    ``dense`` and ``vlm``: differentiable; with ``remat`` (and grad
-    enabled) each layer is checkpointed, so backward keeps one (B, S, d)
-    input per layer and recomputes the rest.  The other families: under
-    ``torch.inference_mode``."""
+    With ``remat`` (and grad enabled) each layer is checkpointed — each
+    Mamba2 layer and each application of the hybrid's shared block, the
+    encdec encoder's and decoder's layers — so backward keeps one (B, S,
+    d) input per layer and recomputes the rest (an SSD layer's scan runs
+    twice).  ``vlm`` reads ``batch["positions"]``, ``encdec``
+    ``batch["enc_embeds"]``."""
     _require_ported(cfg)
-    if cfg.family not in ("dense", "vlm"):
-        return _served_forward_hidden(cfg, model, batch)
     tokens = _tokens(batch["tokens"], model)
     B, S = tokens.shape
     x = L.embed(tokens, model.embed, act_dtype(cfg))
     positions = _batch_positions(cfg, batch, B, S, tokens.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ckpt = remat and torch.is_grad_enabled()
-    for blk in model.layers:
+
+    def run(layer, *args):
         if ckpt:
-            x = checkpoint(_dense_block, blk, x, positions, cfg,
-                           use_reentrant=False)
-        else:
-            x = _dense_block(blk, x, positions, cfg)
-    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            return checkpoint(layer, *args, use_reentrant=False)
+        return layer(*args)
+
+    if cfg.family == "encdec":
+        enc = _enc_embeds(cfg, batch, model)
+        epos = _positions(B, enc.shape[1], x.device)
+        for blk in model.enc_layers:
+            enc = run(_dense_block, blk, enc, epos, cfg, False)
+        for blk in model.dec_layers:
+            x = run(_cross_block, blk, x, positions, enc, cfg)
+    elif cfg.family == "moe":
+        for blk in model.layers:
+            x, a = run(_moe_block, blk, x, positions, cfg)
+            aux = aux + a
+    elif cfg.family in ("ssm", "hybrid"):
+        for li, blk in enumerate(model.layers):
+            x = run(_ssm_block, blk, x, cfg)
+            if _shared_group(cfg, li) is not None:
+                x = run(_dense_block, model.shared, x, positions, cfg)
+    else:
+        for blk in model.layers:
+            x = run(_dense_block, blk, x, positions, cfg)
+    return L.rms_norm(x, model.final_norm, cfg.norm_eps), aux
 
 
 def fused_logits_xent(x: torch.Tensor, table: torch.Tensor,
@@ -560,22 +546,9 @@ def fused_logits_xent(x: torch.Tensor, table: torch.Tensor,
 
 def loss_fn(cfg: ModelConfig, model: nn.Module, batch: dict, *,
             remat: bool = False):
-    """Training loss → (loss, {"xent": loss, "aux": aux}), differentiable
-    with respect to every parameter of a ``dense`` model."""
-    _require_ported(cfg)
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            "training the 'moe' family is not yet ported (ROADMAP Queue 1 "
-            "step 4c)")
-    if cfg.family in ("vlm", "encdec"):
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family is not yet ported (ROADMAP "
-            "Queue 1 step 4d)")
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family needs a backward of the "
-            "ssd_scan kernel, which is not written yet (ROADMAP Queue 1 "
-            "step 4b)")
+    """Training loss → (loss + AUX_WEIGHT · aux, {"xent": loss, "aux":
+    aux}), differentiable with respect to every parameter of every
+    family."""
     x, aux = forward_hidden(cfg, model, batch, remat=remat)
     loss = fused_logits_xent(x, lm_head_table(cfg, model),
                              _tokens(batch["labels"], model))
@@ -601,7 +574,8 @@ def _serve_ffn(p: DenseBlock | MoEBlock, h: torch.Tensor, cfg: ModelConfig
                ) -> torch.Tensor:
     """h plus the served block's FFN: the SwiGLU MLP or the MoE layer."""
     if isinstance(p, MoEBlock):
-        y, _ = MOE.moe_layer(p.moe, L.rms_norm(h, p.ln2, cfg.norm_eps), cfg)
+        y, _ = MOE.moe_layer(p.moe, L.rms_norm(h, p.ln2, cfg.norm_eps), cfg,
+                             cached=True)
         return h + y
     return h + _serve_mlp(p.mlp, p.ln2, h, cfg)
 

@@ -249,7 +249,7 @@ def test_init_params_draws_the_reference_tree(arch):
         assert abs(float(blk.moe.w1.std()) - cfg.num_experts ** -0.5) < 0.02
         assert abs(float(blk.moe.router.std()) - cfg.d_model ** -0.5) < 0.02
     if cfg.family in ("hybrid", "moe"):
-        assert not any(p.requires_grad for p in model.parameters())
+        assert all(p.requires_grad for p in model.parameters())
     if cfg.family == "hybrid":
         assert len(model.layers) == cfg.num_layers
         assert isinstance(model.layers[0], T.SSMBlock)
@@ -334,15 +334,6 @@ def test_decode_needs_pos_for_the_attention_families():
                               device="cpu")
         with pytest.raises(ValueError, match="pos"):
             T.decode_step(cfg, model, np.zeros((2, 1), np.int32), cache)
-
-
-def test_training_the_new_families_raises():
-    for case, step in (("zamba2-1.2b", "4b"), ("qwen3-moe-30b-a3b", "4c")):
-        _, cfg, _, model = _pair(case, "float32")
-        batch = {"tokens": _prompts(cfg, (1, 4)),
-                 "labels": _prompts(cfg, (1, 4))}
-        with pytest.raises(NotImplementedError, match=step):
-            T.loss_fn(cfg, model, batch)
 
 
 def _cli(arch, *args):

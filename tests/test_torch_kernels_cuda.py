@@ -13,7 +13,9 @@ max |h| in fp32; in bf16 (fp16), y within 2 bf16 (fp16) ulps of each
 element plus that fp32 bound (both round an fp32 sum that differs in the
 last bits).  Two launches on the same inputs give the same bits.  Its
 bf16 kernels run on the tensor cores (HMMA in their SASS), the fp32 and
-fp16 ones none.
+fp16 ones none.  ``ssd_scan_bwd`` is held to the same gate against its
+plain version (autograd of ``ssd_scan_ragged``), each of dx, ddt, dA, dB
+and dC against its own max, and a second launch gives the same bits.
 ``flash_attention`` sums in another order than its plain version: fp32
 within 2e-5 (the reference's ``tests/test_kernels.py`` tolerance), bf16
 within 2 bf16 ulps of each element plus that.  Its bf16 body runs both
@@ -214,19 +216,26 @@ def ssd_inputs(Bt, S, H, P, N, dtype, seed, device, strided=False):
     return x, dt.to(device), A.to(device), B, C
 
 
-def assert_ssd_close(got, want):
-    (y, h), (y0, h0) = got, want
-    assert torch.isfinite(y.float()).all() and torch.isfinite(h).all()
-    assert y.dtype == y0.dtype and y.shape == y0.shape
+def assert_gate(y, y0, what=""):
+    """y finite and within 1e-4 × max |y0| of y0, plus 2 ulps of each
+    element in bf16 (fp16)."""
+    assert torch.isfinite(y.float()).all(), what
+    assert y.dtype == y0.dtype and y.shape == y0.shape, what
     yf, y0f = y.float(), y0.float()
     bound = 1e-4 * float(y0f.abs().max())
     if y.dtype in (torch.bfloat16, torch.float16):
         bits = 7 if y.dtype == torch.bfloat16 else 10
         ulp = torch.exp2(torch.floor(torch.log2(
             y0f.abs().clamp_min(2.0 ** -126))) - bits)
-        assert ((yf - y0f).abs() <= 2 * ulp + bound).all()
+        assert ((yf - y0f).abs() <= 2 * ulp + bound).all(), what
     else:
-        assert float((yf - y0f).abs().max()) <= bound
+        assert float((yf - y0f).abs().max()) <= bound, what
+
+
+def assert_ssd_close(got, want):
+    (y, h), (y0, h0) = got, want
+    assert torch.isfinite(h).all()
+    assert_gate(y, y0)
     assert float((h - h0).abs().max()) <= 1e-4 * float(h0.abs().max())
 
 
@@ -353,6 +362,137 @@ def test_reduced_mamba2_serves_on_the_card_through_the_kernel(cuda):
     res0 = ServeEngine(cfg, cpu, max_len=48, device="cpu").generate(
         prompts, max_new_tokens=4)
     np.testing.assert_array_equal(res.tokens, res0.tokens)
+
+
+def ssd_grads(x, dt, A, B, C, seed, dh, strided):
+    """dy (a view into a wider buffer when ``strided``) and dh_final (None
+    unless ``dh``) for the backward of a scan over these inputs."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    Bt, S, H, P = x.shape
+    buf = torch.randn((Bt, S, H, P + 3 * strided), generator=g)
+    dy = buf[..., :P].to(device=x.device, dtype=x.dtype)
+    if not strided:
+        dy = dy.contiguous()
+    dhf = torch.randn((Bt, H, B.shape[-1], P), generator=g).to(x.device) \
+        if dh else None
+    return dy, dhf
+
+
+def assert_bwd_close(got, want):
+    for name, t, t0 in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        assert_gate(t, t0, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES, ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("dh", [False, True])
+def test_ssd_scan_bwd_kernel_matches_plain_version(cuda, case, dtype,
+                                                   strided, dh):
+    Bt, S, H, P, N, chunk = case
+    args = ssd_inputs(Bt, S, H, P, N, getattr(torch, dtype), seed=S + H,
+                      device=cuda, strided=strided)
+    dy, dhf = ssd_grads(*args, seed=S, dh=dh, strided=strided)
+    scratch = tssd.ssd_scan(*args, chunk=chunk, keep_scratch=True)[2]
+    n0 = tssd.ssd_scan_bwd.launches
+    got = tssd.ssd_scan_bwd(*args, dy, dhf, chunk=chunk, scratch=scratch)
+    torch.cuda.synchronize()
+    assert tssd.ssd_scan_bwd.launches == n0 + 1
+    assert_bwd_close(got, tssd.ssd_scan_bwd.plain(*args, dy, dhf,
+                                                  chunk=chunk))
+    again = tssd.ssd_scan_bwd(*args, dy, dhf, chunk=chunk, scratch=scratch)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_bwd_is_finite_where_the_decay_overflows(cuda, dtype):
+    """A = −16, dt = 0.1 at chunk 256, a ragged last chunk: the backward
+    forms exp(s_t − s_u) only for u ≤ t."""
+    x, _, _, B, C = ssd_inputs(1, 600, 2, 64, 128, getattr(torch, dtype),
+                               seed=3, device=cuda)
+    dt = torch.full((1, 600, 2), 0.1, device=cuda)
+    A = torch.tensor([-1.0, -16.0], device=cuda)
+    dy, dhf = ssd_grads(x, dt, A, B, C, seed=4, dh=True, strided=False)
+    scratch = tssd.ssd_scan(x, dt, A, B, C, chunk=256, keep_scratch=True)[2]
+    got = tssd.ssd_scan_bwd(x, dt, A, B, C, dy, dhf, chunk=256,
+                            scratch=scratch)
+    assert_bwd_close(got, tssd.ssd_scan_bwd.plain(x, dt, A, B, C, dy, dhf,
+                                                  chunk=256))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_is_differentiable_on_the_card(cuda, dtype):
+    """``ops.ssd_scan`` under autograd: one forward and one backward
+    launch, the gradients of a loss on y and h at the gate against
+    autograd of the plain version; under ``inference_mode`` the forward's
+    one launch and no backward."""
+    x, dt, A, B, C = ssd_inputs(2, 300, 4, 32, 64, getattr(torch, dtype),
+                                seed=5, device=cuda, strided=True)
+    ins = [t.detach().requires_grad_(True) for t in (x, dt, A, B, C)]
+    n0, b0 = tssd.ssd_scan.launches, tssd.ssd_scan_bwd.launches
+    y, h = tops.ssd_scan(*ins, chunk=128)
+    (y.float().square().sum() + h.sum()).backward()
+    assert (tssd.ssd_scan.launches, tssd.ssd_scan_bwd.launches) == \
+        (n0 + 1, b0 + 1)
+    dy = (2 * y.float()).to(y.dtype).detach()
+    want = tssd.ssd_scan_bwd.plain(x, dt, A, B, C, dy, torch.ones_like(h),
+                                   chunk=128)
+    assert_bwd_close([t.grad for t in ins], want)
+    with torch.inference_mode():
+        tops.ssd_scan(*ins, chunk=128)
+    assert (tssd.ssd_scan.launches, tssd.ssd_scan_bwd.launches) == \
+        (n0 + 2, b0 + 1)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_bwd_refuses_what_it_cannot_take(cuda):
+    x, dt, A, B, C = ssd_inputs(1, 16, 1, 8, 8, torch.float32, seed=0,
+                                device=cuda)
+    dy = torch.zeros_like(x)
+    scratch = tssd.ssd_scan(x, dt, A, B, C, chunk=8, keep_scratch=True)[2]
+    with pytest.raises(TypeError):                       # dy's dtype
+        tssd.ssd_scan_bwd(x, dt, A, B, C, dy.double(), chunk=8,
+                          scratch=scratch)
+    with pytest.raises(ValueError):                      # not its scratch
+        tssd.ssd_scan_bwd(x, dt, A, B, C, dy, chunk=8,
+                          scratch=torch.zeros(3, device=cuda))
+    with pytest.raises(ValueError):                      # dh_final's shape
+        tssd.ssd_scan_bwd(x, dt, A, B, C, dy, torch.zeros(1, device=cuda)
+                          .expand(1, 1, 8, 4), chunk=8, scratch=scratch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b"])
+def test_reduced_ssm_families_train_on_the_card_through_the_kernels(cuda,
+                                                                    arch):
+    """The reduced model's fp32 loss and gradients on the card against the
+    same model on the CPU, with ``ssd_scan`` launched twice per layer under
+    remat and ``ssd_scan_bwd`` once."""
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.models import transformer as T
+
+    cfg = get_reduced(arch).replace(dtype="float32")
+    cpu = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                        device="cpu")
+    card = type(cpu)(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    batch = TokenPipeline(cfg, 2, 40, seed=0)(0)
+    n0, b0 = tssd.ssd_scan.launches, tssd.ssd_scan_bwd.launches
+    loss, _ = T.loss_fn(cfg, card, batch, remat=True)
+    loss.backward()
+    assert (tssd.ssd_scan.launches - n0, tssd.ssd_scan_bwd.launches - b0) \
+        == (2 * cfg.num_layers, cfg.num_layers)
+    loss0, _ = T.loss_fn(cfg, cpu, batch, remat=True)
+    loss0.backward()
+    assert abs(float(loss) - float(loss0)) <= 1e-5 * abs(float(loss0))
+    for (name, p), p0 in zip(card.named_parameters(), cpu.parameters()):
+        g, g0 = p.grad.cpu(), p0.grad
+        assert float((g - g0).abs().max()) <= 1e-4 * float(
+            g0.abs().max()) + 1e-9, name
 
 
 # ------------------------------------------------------------------ #

@@ -93,8 +93,8 @@ def test_moe_layer_matches_reference_where_pairs_drop(arch, cf):
     jy, jaux = JM.moe_layer(params, jnp.asarray(x), jcfg)
     p.drop_log = log = []
     y, aux = M.moe_layer(p, torch.from_numpy(x), cfg)
-    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-6,
-                               atol=1e-5)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(jy),
+                               rtol=1e-6, atol=1e-5)
     assert abs(float(aux) - float(jaux)) <= 1e-5
     assert 0.5 < float(aux) < 4.0      # balanced-ish routing at init
     T, k = 64, cfg.moe_top_k
@@ -137,10 +137,10 @@ def test_forced_router_tie_gives_the_reference_drop_set(tie):
     assert len(want) == 2 * (T - cap) + (tie == "all")
     jy, jaux = JM.moe_layer(params, jnp.asarray(x), jcfg)
     y, aux = M.moe_layer(p, torch.from_numpy(x), cfg)
-    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-6,
-                               atol=1e-5)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(jy),
+                               rtol=1e-6, atol=1e-5)
     assert abs(float(aux) - float(jaux)) <= 1e-5
-    dropped = np.abs(y.numpy().reshape(T, -1)).max(axis=1) == 0
+    dropped = np.abs(y.detach().numpy().reshape(T, -1)).max(axis=1) == 0
     assert dropped.sum() == T - cap          # tokens cap.. drop both choices
 
 

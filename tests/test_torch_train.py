@@ -273,15 +273,6 @@ def test_multi_device_settings_are_refused():
             TrainLoop(cfg, TrainConfig(**kw), device="cpu")
 
 
-def test_ssm_training_is_not_ported():
-    cfg = get_reduced("mamba2-1.3b")
-    model = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
-                          device="cpu")
-    batch = TokenPipeline(cfg, 1, 16)(0)
-    with pytest.raises(NotImplementedError, match="ssd_scan"):
-        T.loss_fn(cfg, model, batch)
-
-
 # ------------------------------------------------------------------ #
 # Checkpoints across the two packages                                #
 # ------------------------------------------------------------------ #

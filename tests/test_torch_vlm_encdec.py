@@ -387,7 +387,7 @@ def test_init_params_draws_the_reference_tree(arch):
                      model.enc_layers[0].attn):
             assert abs(float(attn.wq.std()) - cfg.d_model ** -0.5) < 0.03
         assert float(blk.ln3.min()) == float(blk.ln3.max()) == 1.0
-        assert not any(p.requires_grad for p in model.parameters())
+        assert all(p.requires_grad for p in model.parameters())
     else:
         assert isinstance(model, T.DenseLM)
         assert abs(float(model.layers[0].attn.wq.detach().std())
@@ -488,14 +488,6 @@ def test_missing_inputs_raise():
                      extra_inputs={"enc_embeds": frames})
     with pytest.raises(ValueError, match="enc_embeds"):
         T.forward(cfg, model, {"tokens": prompts})
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_training_the_new_families_raises(arch):
-    _, cfg, _, model = _pair(arch, "float32")
-    batch = dict(_batch(cfg, 1, 4), labels=_batch(cfg, 1, 4)["tokens"])
-    with pytest.raises(NotImplementedError, match="4d"):
-        T.loss_fn(cfg, model, batch)
 
 
 def _cli(arch, *args):
