@@ -439,6 +439,9 @@ PATH_STATE_K = 16384
 #: response must hold none of the first four (global atomics and
 #: reductions, memory fences).
 BR_SASS_OPS = ("ATOMG", "RED", "REDG", "MEMBAR", "HMMA")
+#: Opcodes counted in ssd_scan_bwd's SASS: its bf16 product passes must
+#: hold tensor-core instructions (the first two), no pass the others.
+SSD_BWD_SASS_OPS = ("HMMA", "HGMMA", "ATOMG", "RED", "REDG")
 #: gauss_seidel_sweep against its plain version, one sweep from x = 0 at
 #: fig1d: V = rᵀr + c‖x‖₁ and max |δ| within GS_SWEEP_RTOL relative, and
 #: max |x − x_plain| within GS_SWEEP_XTOL × max |x_plain| (the dot products
@@ -691,12 +694,15 @@ def phase_hopper(torch, build, fp, fa, gs, ssd):
     made them: registers, local (spill) bytes, static and dynamic shared
     memory, blocks per SM (``flash_attention`` at the prefill's D 80 and
     128 in bf16, and its fp32 body; each of ``ssd_scan``'s passes in bf16
-    and fp32 at mamba2-1.3b's N 128, P 64, chunk 256) and clusters the
-    card can hold (``gauss_seidel_sweep`` at fig1d's m); and the
-    tensor-core instructions in the SASS of ``flash_attention`` and
-    ``ssd_scan``: every bf16 instantiation (one per D / 16; the chunk
-    states and chunk outputs) must hold HMMA or HGMMA, no fp32 (or fp16)
-    one any; ``batched_best_response`` at the solver's (1, 100000) and
+    and fp32 at mamba2-1.3b's N 128, P 64, chunk 256, ``ssd_scan_bwd``'s
+    in bf16 at N 128 and 64) and clusters the card can hold
+    (``gauss_seidel_sweep`` at fig1d's m); and the tensor-core
+    instructions in the SASS of ``flash_attention``, ``ssd_scan`` and
+    ``ssd_scan_bwd``: every bf16 instantiation (one per D / 16; the chunk
+    states and chunk outputs; the backward's dH, rows of u and rows of t)
+    must hold HMMA or HGMMA, no fp32 (or fp16) one any, and no
+    instantiation of ``ssd_scan_bwd`` a global atomic or reduction;
+    ``batched_best_response`` at the solver's (1, 100000) and
     (8, 100000): one launch of one cluster of C > 1 CTAs per instance, no
     global atomic, reduction or fence in any instantiation of that
     form's SASS (the two-level form's ticket shows as ATOMG and MEMBAR)."""
@@ -714,7 +720,7 @@ def phase_hopper(torch, build, fp, fa, gs, ssd):
             info[f"ssd_scan {str(dt).split('.')[-1]} {pass_} "
                  f"N={SSD_ZAMBA[4]}"] = ssd.kernel_info(
                      dt, pass_, SSD_ZAMBA[4], P, chunk)
-    # ssd_scan_bwd's passes (CUDA-core fp32 FMAs in every dtype)
+    # ssd_scan_bwd's passes (bf16: tensor cores)
     for pass_ in ssd.BWD_PASSES:
         for Ns in (N, SSD_ZAMBA[4]):
             info[f"ssd_scan_bwd bfloat16 {pass_} N={Ns}"] = \
@@ -752,6 +758,19 @@ def phase_hopper(torch, build, fp, fa, gs, ssd):
         key = kern.group(1) + ({"f": "<float>", "6__half": "<half>"}[
             elem.group(1)] if elem else "")
         ssd_sass[kind][key] = ops["HMMA"] + ops["HGMMA"]
+    bwd_sass = {"bf16": {}, "fp32": {}, "atomics": 0}
+    for name, ops in build.sass_counts("ssd_scan_bwd",
+                                       opcodes=SSD_BWD_SASS_OPS).items():
+        kern = re.search(r"(ssd_bwd_\w+?)(I|E)", name)
+        if kern is None:
+            continue
+        kind = "bf16" if kern.group(1).endswith("_mma") else "fp32"
+        elem = re.search(r"I(f|6__half|13__nv_bfloat16)EEv", name)
+        key = kern.group(1) + ({"f": "<float>", "6__half": "<half>",
+                                "13__nv_bfloat16": "<bf16>"}[elem.group(1)]
+                               if elem else "")
+        bwd_sass[kind][key] = ops["HMMA"] + ops["HGMMA"]
+        bwd_sass["atomics"] += ops["ATOMG"] + ops["RED"] + ops["REDG"]
     info[f"compact_best_response K={PATH_STATE_K} C=1"] = \
         fp.compact_kernel_info(PATH_STATE_K, 1)
     cbr_forms = {"one_launch": ("compact_br_clusterI",),
@@ -767,6 +786,7 @@ def phase_hopper(torch, build, fp, fa, gs, ssd):
                     cbr_sass[form][op] += ops[op]
     say("hopper_kernels", info=info, tensor_core_sass=sass,
         ssd_scan_tensor_core_sass=ssd_sass,
+        ssd_scan_bwd_tensor_core_sass=bwd_sass,
         batched_best_response_sass=br_sass,
         compact_best_response_sass=cbr_sass)
     one = cbr_sass["one_launch"]
@@ -798,6 +818,14 @@ def phase_hopper(torch, build, fp, fa, gs, ssd):
     check(len(ssd_sass["fp32"]) == 5 and not any(ssd_sass["fp32"].values()),
           f"ssd_scan's fp32, fp16 or state passes hold tensor-core SASS: "
           f"{ssd_sass}")
+    check(len(bwd_sass["bf16"]) == 3
+          and all(v > 0 for v in bwd_sass["bf16"].values()),
+          f"ssd_scan_bwd's bf16 product passes lack tensor-core SASS: "
+          f"{bwd_sass}")
+    check(len(bwd_sass["fp32"]) == 11 and not any(bwd_sass["fp32"].values())
+          and bwd_sass["atomics"] == 0,
+          f"ssd_scan_bwd's fp32, fp16 or scalar passes hold tensor-core "
+          f"SASS, or a pass holds an atomic: {bwd_sass}")
     return info
 
 

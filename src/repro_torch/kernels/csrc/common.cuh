@@ -5,11 +5,13 @@
 // gauss_seidel.cu); the launch of a grid of thread-block clusters
 // (flexa_prox.cu, compact_rows.cu, gauss_seidel.cu) and the card's
 // largest cluster of a kernel (flexa_prox.cu, compact_rows.cu); cp.async
-// staging (gauss_seidel.cu,
-// flash_attention.cu, ssd_scan.cu); and the tensor-core pieces of the bf16
-// bodies (flash_attention.cu, ssd_scan.cu): ldmatrix, mma.sync m16n8k16
-// and the exact three-term bf16 split of fp32 values.  Included by those
-// sources, not built on its own (kernels/build.py builds *.cu).
+// staging (gauss_seidel.cu, flash_attention.cu, ssd_scan.cu,
+// ssd_scan_bwd.cu), the staged bf16 tiles of the SSD scans and their row
+// stride (flash_attention.cu's too); and the tensor-core pieces of the
+// bf16 bodies (flash_attention.cu, ssd_scan.cu, ssd_scan_bwd.cu):
+// ldmatrix, mma.sync m16n8k16 and the exact three-term bf16 split of fp32
+// values.  Included by those sources, not built on its own
+// (kernels/build.py builds *.cu).
 
 #pragma once
 
@@ -306,6 +308,61 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ------------------------------------------- staged bf16 tiles (ssd_scan*)
+
+// Row stride of a staged bf16 tile of `width` (a multiple of 16) values:
+// width + 8, an odd number of 16-byte units, so ldmatrix reads 8 rows
+// without bank conflicts.
+__host__ __device__ constexpr int ld_bf(int width) { return width + 8; }
+
+// Rows [0, rows) of a (., cols) bf16 strided source (src at its row 0)
+// into a staged tile (row stride ld), rows at or past `valid` zero, by the
+// whole block.  With v16 (cols a multiple of 8, s_col 1, every row 16-byte
+// aligned): cp.async of 16 bytes, zero-filling, and columns [cols, width)
+// stay as zero_cols left them.  Else plain loads, eight in flight per
+// thread before their stores, zeros up to `width`.
+__device__ __forceinline__ void stage_bf(__nv_bfloat16* dst, int ld,
+                                         const __nv_bfloat16* src,
+                                         long long s_row, long long s_col,
+                                         int rows, int valid, int cols,
+                                         int width, bool v16) {
+  const int nt = blockDim.x;
+  if (v16) {
+    const int nc = cols / 8;
+    for (int e = threadIdx.x; e < rows * nc; e += nt) {
+      const int r = e / nc, cc = 8 * (e % nc);
+      const bool ok = r < valid;
+      cp_async16(smem_addr(dst + r * ld + cc), ok ? src + r * s_row + cc : src,
+                 ok ? 16 : 0);
+    }
+    return;
+  }
+  const int total = rows * width;
+  for (int e0 = threadIdx.x; e0 < total; e0 += 8 * nt) {
+    __nv_bfloat16 v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int e = e0 + k * nt, r = e / width, cc = e % width;
+      v[k] = e < total && r < valid && cc < cols ? src[r * s_row + cc * s_col]
+                                                 : __float2bfloat16_rn(0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int e = e0 + k * nt;
+      if (e < total) dst[(e / width) * ld + e % width] = v[k];
+    }
+  }
+}
+
+// Columns [cols, width) of `rows` staged rows: zero (the cp.async path
+// never writes them).
+__device__ __forceinline__ void zero_cols(__nv_bfloat16* dst, int ld,
+                                          int rows, int cols, int width) {
+  const int n = width - cols;
+  for (int e = threadIdx.x; e < rows * n; e += blockDim.x)
+    dst[(e / n) * ld + cols + e % n] = __float2bfloat16_rn(0.f);
 }
 
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {

@@ -109,10 +109,9 @@ size_t smem_floats(int D) {
   return (size_t)kBQ * ld_qk(D) + kp + (size_t)D * kLdvt;
 }
 
-// bf16 body: D padded to Dp = 16 * NK; a staged row is Dp + 8 values
-// (an odd multiple of 16 bytes), and the q tile, two k and two v tiles
-// are 5 x 64 rows.
-__host__ __device__ constexpr int ld_bf(int Dp) { return Dp + 8; }
+// bf16 body: D padded to Dp = 16 * NK; a staged row is ld_bf(Dp) = Dp + 8
+// values (common.cuh), and the q tile, two k and two v tiles are 5 x 64
+// rows.
 size_t mma_smem_bytes(int Dp) {
   return (size_t)5 * kBK * ld_bf(Dp) * sizeof(__nv_bfloat16);
 }

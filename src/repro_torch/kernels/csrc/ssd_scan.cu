@@ -523,10 +523,6 @@ constexpr int kMmaThreads = 256;    // 8 warps
 constexpr int kTU = 64;             // rows of u per staged tile
 constexpr int kTT = 128;            // rows of t per output tile (8 x 16)
 
-// Row stride of a staged bf16 tile of `width` (a multiple of 16) values:
-// width + 8, an odd number of 16-byte units.
-__host__ __device__ inline int ld_bf(int width) { return width + 8; }
-
 // (a): two stages of B and x tiles; dt, s and the u weights of the chunk
 // (rows padded to kTT)
 size_t mma_state_bytes(int N, int P, int L) {
@@ -544,41 +540,6 @@ size_t mma_out_bytes(int N, int P, int L) {
   const int Np = round_up(N, 16), Pp = round_up(P, 16);
   return sizeof(bf16) * ((size_t)kTT * ld_bf(Np) + out_union(Np, Pp)) +
          2 * sizeof(float) * (size_t)round_up(L, kTT);
-}
-
-// Rows [0, rows) of a (., cols) bf16 strided source (src at its row 0)
-// into a staged tile (row stride ld), rows at or past `valid` zero.  With
-// v16 (cols a multiple of 8, s_col 1, every row 16-byte aligned): cp.async
-// of 16 bytes, zero-filling, and columns [cols, width) stay as zeroed at
-// the start.  Else plain loads and stores, zeros up to `width`.
-__device__ __forceinline__ void stage_bf(bf16* dst, int ld, const bf16* src,
-                                         long long s_row, long long s_col,
-                                         int rows, int valid, int cols,
-                                         int width, int v16) {
-  if (v16) {
-    const int nc = cols / 8;
-    for (int e = threadIdx.x; e < rows * nc; e += kMmaThreads) {
-      const int r = e / nc, cc = 8 * (e % nc);
-      const bool ok = r < valid;
-      cp_async16(smem_addr(dst + r * ld + cc), ok ? src + r * s_row + cc : src,
-                 ok ? 16 : 0);
-    }
-  } else {
-    for (int e = threadIdx.x; e < rows * width; e += kMmaThreads) {
-      const int r = e / width, cc = e % width;
-      dst[r * ld + cc] = r < valid && cc < cols ? src[r * s_row + cc * s_col]
-                                                : __float2bfloat16_rn(0.f);
-    }
-  }
-}
-
-// Columns [cols, width) of `rows` staged rows: zero (the cp.async path
-// never writes them).
-__device__ __forceinline__ void zero_cols(bf16* dst, int ld, int rows,
-                                          int cols, int width) {
-  const int n = width - cols;
-  for (int e = threadIdx.x; e < rows * n; e += kMmaThreads)
-    dst[(e / n) * ld + cols + e % n] = __float2bfloat16_rn(0.f);
 }
 
 // (a) on the tensor cores: one block of 8 warps per (chunk, head, batch

@@ -23,7 +23,10 @@ differentiates its jnp oracle): given dy and the gradient of the final
 state, dx, ddt, dA, dB and dC in six launches (``csrc/ssd_scan_bwd.cu``
 says what each does), reading the per-chunk entering states and the
 cumsum that the forward left in its scratch (``ssd_scan(...,
-keep_scratch=True)``).  Its plain version is
+keep_scratch=True)``).  As the forward, bf16 inputs run every product on
+the tensor cores (the fp32 factors as three exact bf16 terms) and sum dB
+and dC over groups of 8 heads inside the kernel; fp32 and fp16 on the
+CUDA cores.  Its plain version is
 :func:`repro_torch.kernels.ref.ssd_scan_bwd` (``ssd_scan_bwd.plain``),
 autograd of ``ssd_scan_ragged``.
 
@@ -92,7 +95,8 @@ def bwd_library() -> ctypes.CDLL:
         lib.ssd_scan_bwd_launch.argtypes = [vp] * 8 + [ci] + [vp] * 6 + [
             ll, ll, ci, ci, ci, ci, vp, vp]
         lib.ssd_scan_bwd_launch.restype = ci
-        lib.ssd_scan_bwd_scratch_floats.argtypes = [ll, ll, ci, ci, ci, ci]
+        lib.ssd_scan_bwd_scratch_floats.argtypes = [ll, ll, ci, ci, ci, ci,
+                                                    ci]
         lib.ssd_scan_bwd_scratch_floats.restype = ll
         lib.ssd_scan_bwd_kernel_info.argtypes = [ci, ci, ci, ci, ci, vp]
         lib.ssd_scan_bwd_kernel_info.restype = ci
@@ -251,8 +255,9 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     A = A.contiguous()
     strides = (ctypes.c_longlong * 17)(*x.stride(), *dt.stride(),
                                        *B.stride(), *C.stride(), *dy.stride())
-    work = torch.empty(lib.ssd_scan_bwd_scratch_floats(Bt, S, H, P, N, chunk),
-                       dtype=torch.float32, device=dev)
+    work = torch.empty(lib.ssd_scan_bwd_scratch_floats(
+        Bt, S, H, P, N, chunk, DTYPE_CODES[x.dtype]), dtype=torch.float32,
+        device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ssd_scan_bwd_launch(

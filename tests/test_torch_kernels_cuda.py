@@ -15,7 +15,9 @@ last bits).  Two launches on the same inputs give the same bits.  Its
 bf16 kernels run on the tensor cores (HMMA in their SASS), the fp32 and
 fp16 ones none.  ``ssd_scan_bwd`` is held to the same gate against its
 plain version (autograd of ``ssd_scan_ragged``), each of dx, ddt, dA, dB
-and dC against its own max, and a second launch gives the same bits.
+and dC against its own max, and a second launch gives the same bits; its
+bf16 product passes run on the tensor cores, the others none, and no
+instantiation holds a global atomic.
 ``flash_attention`` sums in another order than its plain version: fp32
 within 2e-5 (the reference's ``tests/test_kernels.py`` tolerance), bf16
 within 2 bf16 ulps of each element plus that.  Its bf16 body runs both
@@ -308,6 +310,32 @@ def test_ssd_scan_bf16_kernels_run_on_tensor_cores(cuda):
         for pass_ in tssd.PASSES:
             info = tssd.kernel_info(dtype, pass_, 128, 64, 256)
             assert info["registers"] > 0 and info["blocks_per_sm"] >= 1, info
+
+
+@pytest.mark.cuda
+def test_ssd_scan_bwd_bf16_kernels_run_on_tensor_cores(cuda):
+    """The SASS of the backward's bf16 product passes (dH, the rows of u,
+    the rows of t) holds HMMA (mma.sync); its fp32 and fp16 instantiations,
+    the state pass, the ds pass and the head sums hold no tensor-core
+    instruction; no instantiation holds a global atomic or reduction (every
+    sum in a fixed order); each pass's registers and occupancy are readable
+    at mamba2-1.3b's N 128 and zamba2-1.2b's N 64."""
+    ops = ("HMMA", "HGMMA", "ATOMG", "RED", "REDG")
+    counts = build.sass_counts("ssd_scan_bwd", opcodes=ops)
+    ours = {k: v for k, v in counts.items() if "ssd_bwd_" in k}
+    mma = {k: v for k, v in ours.items() if "_mma" in k}
+    rest = {k: v for k, v in ours.items() if k not in mma}
+    assert len(mma) == 3 and len(rest) == 11, sorted(counts)
+    assert all(v["HMMA"] + v["HGMMA"] > 0 for v in mma.values()), mma
+    assert all(v["HMMA"] + v["HGMMA"] == 0 for v in rest.values()), rest
+    assert not any(v["ATOMG"] + v["RED"] + v["REDG"]
+                   for v in ours.values()), ours
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
+        for N in (128, 64):
+            for pass_ in tssd.BWD_PASSES:
+                info = tssd.bwd_kernel_info(dtype, pass_, N, 64, 256)
+                assert info["registers"] > 0 and \
+                    info["blocks_per_sm"] >= 1, (dtype, N, pass_, info)
 
 
 @pytest.mark.cuda
