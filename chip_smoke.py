@@ -34,7 +34,9 @@ each failing the run when its check fails:
 2. kernels  — every kernel against its plain torch version on the card:
                ``gather_rows`` / ``scatter_rows`` exactly (pure data
                movement) over a sweep that includes the fig1d shapes, the
-               path's padded bucket, ragged C, all-padding, K = 1,
+               path's padded bucket, the compacted group path's (Aᵀ's
+               blocks as rows of 25000 floats, the C = 5 vectors; full
+               and padded buckets of 4096), ragged C, all-padding, K = 1,
                bf16/fp16 sources, and a scatter at a ragged n and on a
                view one element into its storage; ``ssd_scan`` at the reduced and the full
                mamba2-1.3b width, zamba2-1.2b's (4 × 4096, N 64),
@@ -114,7 +116,36 @@ each failing the run when its check fails:
                fold 0 on the same grid, the selected λ index equal to the
                one recomputed on the host from the fold x's by the
                validation MSE.
-7. serve    — slice 2's main path: full-width mamba2-1.3b (48 layers,
+6d. families — slice 15's main path: the other problem families at
+               fig1d's dimensions (m 5000, n 100000, 5 % nnz, seed 0,
+               generated on 3 host threads): the planted group Lasso
+               (20000 blocks of 5, c 1), logreg and svm at c = 0.1 λ_max
+               (λ_max printed).  ``SoloSpec`` 500 iterations each (group
+               Lasso again under ``newton_cg``'s inexact loop): ms per
+               iteration, V at x = 0 and at the end (finite and below),
+               the stationarity residual, group Lasso's (V − V*)/V* and
+               last certificate; ``batched_best_response`` launched 500
+               times for logreg and svm (by counter; logreg's solve once
+               more by profiler, a short profile printed and the solve
+               profiled again, 3 times at most) and never for group
+               Lasso; one full-size logreg
+               and svm iteration's z and x_new from the kernels equal
+               their plain versions bit for bit.  Logreg under Jacobi,
+               100 iterations: ``batched_best_response`` and
+               ``batched_apply_update`` 100 each.  Compacted λ-paths
+               (``PathSpec(..., compact=True)``, 8 points) of group Lasso
+               to 0.15 λ_max and logreg to 0.1 λ_max: every point
+               converged, zero blocks within 1e-3 of the KKT bound, the
+               gather and scatter launched, ``batched_best_response``
+               once per solver iteration for logreg and never for group
+               Lasso; wall s, row iterations, supports, KKT rounds and
+               violations, launches by counter.  At fig1b's dimensions
+               (m 2000, n 10000) each family, 100 Jacobi iterations at
+               fixed τ⁰ = L_F / 2 on the card and on the CPU: x within
+               1e-4, V within 1e-5 relative.  A logreg ``BatchSpec`` of 4
+               fig1b instances, greedy for 300 iterations at fixed τ⁰ =
+               max L_F / 2: row 0's V within 1e-3 of a ``SoloSpec``.
+7. serve   — slice 2's main path: full-width mamba2-1.3b (48 layers,
                random weights from a seeded generator) through
                ``ServeEngine.generate``, 4 prompts of 4096 tokens and 32
                new tokens, greedy; ``ssd_scan`` launched once per layer
@@ -385,6 +416,22 @@ BATCH = dict(B=8, iters=300, gen_threads=4)
 #: The cv phase (``benchmarks/path_bench.py:run_cv`` at fig1b's width).
 CV = dict(m_total=8000, n=10_000, support=500, K=4, P=16, ratio=0.05,
           seed=0, tol=1e-6)
+#: The families phase: group Lasso, logreg and svm at fig1d's dimensions
+#: (m 5000, n 100000; group blocks of 5), seed 0; logreg and svm at
+#: c = ``lam_frac`` · λ_max.  Solo runs of ``iters``, logreg under
+#: Jacobi for ``jacobi_iters``, compacted paths of ``path_points``, the
+#: card against the CPU at fig1b's dimensions (``check``), and a logreg
+#: ``BatchSpec`` of ``batch`` fig1b instances.
+FAMILIES = dict(m=5000, n=100_000, nnz_frac=0.05, block_size=5, seed=0,
+                lam_frac=0.1, iters=500, jacobi_iters=100, path_points=8,
+                path_tol=1e-6, gen_threads=3)
+FAMILIES_CHECK = dict(m=2000, n=10_000, nnz_frac=0.10, block_size=5,
+                      seed=0, iters=100)
+FAMILIES_BATCH = dict(B=4, iters=300)
+#: Gathers of the compacted group path at fig1d: Aᵀ's blocks as rows of
+#: bs·m = 25000 floats, and the (n_blocks, 5) vectors.
+GROUP_GATHER = (20_000, 25_000, 4096)
+GROUP_VECTOR = (20_000, 5, 4096)
 #: (Bt, S, H, P, N, chunk) of the ssd_scan sweep: reduced, full width.
 SSD_REDUCED = (2, 64, 3, 16, 8, 16)
 SSD_FULL = [(1, 256, 64, 64, 128, 256), (4, 4096, 64, 64, 128, 256),
@@ -1153,6 +1200,14 @@ def phase_kernels(torch, fp, ssd, fa, gs, dev):
     case(n, m, PADDED_K_VALID, GATHER_KS[-1], torch.float32, 9, timed=True)
     case(n, 1, VECTOR_K, VECTOR_K, torch.float32, 1)   # the (n, 1) vectors
     case(n, 1, VECTOR_K * 5 // 8, VECTOR_K, torch.float32, 2)   # padding
+    # the compacted group path: Aᵀ's blocks of bs·m floats, the C = 5
+    # vectors (the scatter's general form), each full and padded
+    rows, C, K = GROUP_GATHER
+    case(rows, C, K, K, torch.float32, 11, timed=True)
+    case(rows, C, K * 5 // 8, K, torch.float32, 12)
+    rows, C, K = GROUP_VECTOR
+    case(rows, C, K, K, torch.float32, 13)
+    case(rows, C, K * 5 // 8, K, torch.float32, 14)
     for C in (37, 300, 4999):                     # ragged C
         case(1000, C, 300, 512, torch.float32, C)
     case(1000, 300, 0, 64, torch.float32, 3)      # every slot −1
@@ -1717,8 +1772,6 @@ def phase_path(torch, fp, p):
     from repro_torch.client import FlexaClient, PathSpec
     from repro_torch.config.base import SolverConfig
     from repro_torch.obs import trace as obs
-    from repro_torch.path.driver import _problem_at
-    from repro_torch.path.screening import block_scores
     from repro_torch.problems.families import get_family
 
     gather, scatter = fp.gather_rows, fp.scatter_rows
@@ -1759,14 +1812,7 @@ def phase_path(torch, fp, p):
           f"batched_best_response launched {launches['batched_best_response']}"
           f" times for {r.row_iters} iterations in {solves} solves")
     check(bool((r.x[0] == 0).all()) and r.support[-1] > 0, "path support")
-    fam = get_family("lasso")
-    kkt = 0.0
-    for k, lam in enumerate(r.lambdas):
-        pk = _problem_at(p, float(lam))
-        s = block_scores(fam, pk, r.x[k])
-        zero = r.x[k] == 0
-        if zero.any():
-            kkt = max(kkt, float((s[zero] - lam).max() / lam))
+    kkt = max_zero_block_kkt(get_family("lasso"), p, r)
     check(kkt <= 1e-3, f"KKT violated on zero blocks: {kkt}")
     # host wall time of each solved point (the driver reads every point's
     # result back, so its span ends after the device work)
@@ -1915,13 +1961,14 @@ def phase_batch(torch, fp, dev):
         check(all(math.isfinite(v) and v < v_0 for v, v_0 in zip(o["V"],
                                                                    v0)),
               f"batch {rule}: V {o['V']}, V at x = 0 {v0}")
-    # Jacobi's iteration has no branch, so row 0 follows the solo
-    # trajectory up to fp32 summation order.  The greedy ρ-rule compares
-    # E against ρ·max E, and the batched and the solo products sum in
-    # another order, so a coordinate whose E lies within rounding of the
-    # threshold is selected in one run and not in the other, and the
-    # trajectories part (max |dx| 0.0102 after 300 iterations on the
-    # H100); there row 0 must reach the solo run's V within 1e-3.
+    # Row 0 runs its instance's own closures and column-norm reduction
+    # (``problems.lasso.stacked_fns``), so under either rule it follows
+    # the solo trajectory bit for bit (max |dx| 0.0 on the H100).  One
+    # batched product over the stack would sum in another order, and the
+    # greedy ρ-rule, which compares E against ρ·max E, would then select
+    # a coordinate whose E lies within rounding of the threshold in one
+    # run and not in the other (max |dx| 0.0102 after 300 iterations);
+    # so greedy holds row 0 to the solo run's V within 1e-3.
     check(out["jacobi"]["row0_vs_solo_max_dx"] <= 1e-4, f"batch jacobi: row "
           f"0 vs SoloSpec max |dx| {out['jacobi']['row0_vs_solo_max_dx']}")
     check(out["greedy"]["row0_vs_solo_V_rel"] <= 1e-3, f"batch greedy: row "
@@ -2013,6 +2060,347 @@ def phase_cv(torch, fp, dev):
         fold0_vs_path_max_dx=dx)
     del probs, folds, cv, p0
     torch.cuda.empty_cache()
+
+
+FAMILY_NAMES = ("group_lasso", "logreg", "svm")
+NEWTON = dict(surrogate="newton_cg", inexact_alpha1=0.5)
+
+
+def family_instance(family, spec, device, seed=None):
+    """``family``'s generated instance at ``spec``'s dimensions and seed on
+    ``device``: the planted group Lasso at c = 1, logreg and svm at their
+    generators' default weight."""
+    from repro_torch.problems.group_lasso import nesterov_group_instance
+    from repro_torch.problems.logreg import random_logreg_instance
+    from repro_torch.problems.svm import random_svm_instance
+
+    m, n, bs = spec["m"], spec["n"], spec["block_size"]
+    seed = spec["seed"] if seed is None else seed
+    if family == "group_lasso":
+        return nesterov_group_instance(m, n // bs, bs, spec["nnz_frac"],
+                                       c=1.0, seed=seed, device=device)
+    make = random_logreg_instance if family == "logreg" \
+        else random_svm_instance
+    return make(m, n, spec["nnz_frac"], seed=seed, device=device)
+
+
+def at_lam_frac(p, frac):
+    """``p`` at c = ``frac`` · λ_max (``path.grid.lambda_max``), and λ_max:
+    the generators' c = 0.5 barely regularises at m = 5000."""
+    import dataclasses
+    from repro_torch.path.grid import lambda_max
+
+    lam = lambda_max(p)
+    return dataclasses.replace(p, g_weight=frac * lam), lam
+
+
+def max_zero_block_kkt(fam, p, r):
+    """Largest (score − λ)/λ over the zero blocks of every path point."""
+    from repro_torch.path.driver import _problem_at
+    from repro_torch.path.screening import block_scores
+
+    kkt = 0.0
+    for k, lam in enumerate(r.lambdas):
+        s = block_scores(fam, _problem_at(p, float(lam)), r.x[k])
+        zero = np.linalg.norm(r.x[k].reshape(p.n_blocks, p.block_size),
+                              axis=-1) == 0
+        if zero.any():
+            kkt = max(kkt, float((s[zero] - lam).max() / lam))
+    return kkt
+
+
+def families_solo(torch, fp, probs, dev):
+    """500 iterations per family through ``SoloSpec`` (group Lasso also
+    under ``newton_cg``'s inexact loop); the logreg solve once more under
+    the profiler; one full-size logreg and svm iteration's kernels
+    against their plain versions."""
+    from repro_torch.client import FlexaClient, SoloSpec
+    from repro_torch.config.base import SolverConfig
+    from repro_torch.core import flexa, surrogate
+
+    F = FAMILIES
+    iters = F["iters"]
+    br = fp.batched_best_response
+    out = {}
+    for fam, extra in (("group_lasso", {}), ("group_lasso", NEWTON),
+                       ("logreg", {}), ("svm", {})):
+        p = probs[fam]
+        name = fam + ("_newton_cg" if extra else "")
+        cfg = SolverConfig(max_iters=iters, tol=-1.0, **extra)
+        v0 = float(p.v(torch.zeros(p.n, device=dev)))
+        last = {}
+
+        def keep(it, state, info):
+            last["cert"] = info["inexact_cert"]
+
+        br.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = FlexaClient(solver=cfg).run(SoloSpec(
+            problem=p, method="flexa", options={"callback": keep}))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = br.launches
+        want = 0 if fam == "group_lasso" else iters
+        check(r.iters == iters, f"families {name}: {r.iters} iterations")
+        check(launches == want, f"families {name}: batched_best_response "
+              f"launched {launches} times, want {want}")
+        x = torch.as_tensor(r.x, device=dev)
+        v = float(p.v(x))
+        check(math.isfinite(v) and v < v0,
+              f"families {name}: V {v}, V at x = 0 {v0}")
+        o = {"ms_per_iter": wall / iters * 1e3, "V0": v0, "V": v,
+             "stationarity": float(p.stationarity(x)),
+             "batched_best_response_launches": launches}
+        if fam == "logreg":
+            o["profiled"] = families_profiled(torch, fp, p, cfg)
+        if fam == "group_lasso":
+            o["V_rel_err"] = (v - p.v_star) / p.v_star
+            o["inexact_cert_last"] = float(last["cert"])
+        else:
+            # one full-size iteration's S.2 and S.4 (full rule) at the
+            # solve's x: the kernels against their plain versions
+            tau = flexa._base_tau(p, cfg)
+            g1 = p.grad_f(x)
+            d1 = surrogate.curvature(p, tau, cfg.surrogate)
+            rows = (x[None], g1[None], d1[None], p.g_weight)
+            z, _ = fp.batched_best_response(*rows)
+            equal_or_fail(torch, "batched_best_response", z,
+                          fp.batched_best_response.plain(*rows)[0],
+                          f"{fam} iteration")
+            equal_or_fail(torch, "batched_best_response",
+                          surrogate.best_response(p, x, g1, d1)[None], z,
+                          f"{fam} iteration, through the chain")
+            gamma = r.raw.state.gamma
+            equal_or_fail(torch, "batched_apply_update",
+                          fp.batched_apply_update(*rows, gamma),
+                          fp.batched_apply_update.plain(*rows, gamma),
+                          f"{fam} iteration")
+            o["iteration_kernels_vs_plain"] = "bitwise"
+        out[name] = o
+        print(f"families solo {name}: " + json.dumps(o), flush=True)
+    return out
+
+
+def families_profiled(torch, fp, p, cfg):
+    """The logreg solve once more under the profiler: its
+    ``batched_best_response`` records must equal the counter.  The
+    profiler can lose a device record (ROADMAP Queue 3, measurement): a
+    profile short of the counter is printed in ``short_profiles`` and the
+    solve profiled again, PROFILE_ATTEMPTS in all."""
+    from repro_torch.client import FlexaClient, SoloSpec
+
+    br = fp.batched_best_response
+    names = {"batched_best_response": KERNEL_NAMES["batched_best_response"]}
+    short = []
+    for attempt in range(PROFILE_ATTEMPTS):
+        br.launches = 0
+        torch.cuda.synchronize()
+        with profiled(torch) as prof:
+            t = time.perf_counter()
+            FlexaClient(solver=cfg).run(SoloSpec(problem=p, method="flexa"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        per_kernel, busy = device_kernels(torch, prof, names)
+        got, ms = per_kernel["batched_best_response"]
+        if got == br.launches:
+            break
+        short.append({"profiler": got, "counter": br.launches,
+                      "window_edges_ms": window_edges(torch, prof)[0]})
+        del prof
+    check(got == br.launches == cfg.max_iters,
+          f"families logreg: profiler {got}, counter {br.launches}, "
+          f"short profiles {short}")
+    return {"batched_best_response": [got, round(ms, 4)],
+            "device_busy_share": busy[1] / (wall * 1e3),
+            "short_profiles": short}
+
+
+def families_jacobi(torch, fp, p):
+    """Logreg under the full rule: S.2 and S.4 are one launch each of the
+    batched kernels per iteration."""
+    from repro_torch.client import FlexaClient, SoloSpec
+    from repro_torch.config.base import SolverConfig
+
+    iters = FAMILIES["jacobi_iters"]
+    br, ap = fp.batched_best_response, fp.batched_apply_update
+    br.launches = ap.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    r = FlexaClient(solver=SolverConfig(max_iters=iters, tol=-1.0,
+                                        jacobi=True)).run(
+        SoloSpec(problem=p, method="flexa"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {"batched_best_response": br.launches,
+                "batched_apply_update": ap.launches}
+    check(launches == {k: iters for k in launches},
+          f"families jacobi: launches {launches} in {iters} iterations")
+    V = r.history["V"]
+    check(r.iters == iters and all(math.isfinite(v) for v in V),
+          f"families jacobi: {r.iters} iterations, V {V[-1]}")
+    return {"iters": iters, "ms_per_iter": wall / iters * 1e3,
+            "V_first": V[0], "V": V[-1], "launches": launches}
+
+
+def families_paths(torch, fp, probs):
+    """The compacted λ-paths of group Lasso and logreg, each with the
+    kernels' counters set to 0 just before it and read just after."""
+    from repro_torch.client import FlexaClient, PathSpec
+    from repro_torch.config.base import SolverConfig
+    from repro_torch.problems.families import get_family
+
+    F = FAMILIES
+    gather, scatter = fp.gather_rows, fp.scatter_rows
+    br = fp.batched_best_response
+    client = FlexaClient(solver=SolverConfig(tol=F["path_tol"],
+                                             max_iters=20000))
+    out = {}
+    for fam, ratio in (("group_lasso", 0.15), ("logreg", 0.1)):
+        p = probs[fam]
+        gather.launches = scatter.launches = br.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = client.run(PathSpec(problem=p, n_points=F["path_points"],
+                                lam_min_ratio=ratio, compact=True))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {"gather_rows": gather.launches,
+                    "scatter_rows": scatter.launches,
+                    "batched_best_response": br.launches}
+        check(bool(r.converged.all()),
+              f"families path {fam}: converged {r.converged.tolist()}")
+        check(launches["gather_rows"] > 0 and launches["scatter_rows"] > 0,
+              f"families path {fam}: launches {launches}")
+        solves = sum(rep.kkt_rounds + 1
+                     for rep, it in zip(r.screened, r.iters) if it > 0)
+        if fam == "group_lasso":        # the group prox is plain torch
+            check(launches["batched_best_response"] == 0,
+                  f"families path {fam}: launches {launches}")
+        else:                           # one S.2 per solver iteration
+            check(r.row_iters <= launches["batched_best_response"]
+                  <= r.row_iters + 15 * solves,
+                  f"families path {fam}: batched_best_response launched "
+                  f"{launches['batched_best_response']} times for "
+                  f"{r.row_iters} iterations in {solves} solves")
+        kkt = max_zero_block_kkt(get_family(fam), p, r)
+        check(kkt <= 1e-3, f"families path {fam}: KKT on zero blocks {kkt}")
+        out[fam] = {
+            "wall_s": round(wall, 3), "points": F["path_points"],
+            "lam_min_ratio": ratio, "lam_max": r.lam_max,
+            "row_iters": r.row_iters, "solves": solves,
+            "iters": [int(i) for i in r.iters],
+            "support": [int(s) for s in r.support],
+            "program_widths": r.meta["program_widths"],
+            "kkt_rounds": [rep.kkt_rounds for rep in r.screened],
+            "kkt_violations": [rep.violations for rep in r.screened],
+            "max_zero_block_kkt": kkt, "launches": launches}
+        print(f"families path {fam}: " + json.dumps(out[fam]), flush=True)
+    return out
+
+
+def families_card_vs_cpu(torch, dev):
+    """Each family at fig1b's dimensions, 100 Jacobi iterations at fixed
+    τ⁰ = L_F / 2 on the card and on the CPU from the same instance (the
+    default τ with fixed τ diverges under Jacobi)."""
+    from repro_torch.client import FlexaClient, SoloSpec
+    from repro_torch.config.base import SolverConfig
+
+    C = FAMILIES_CHECK
+    out = {}
+    for fam in FAMILY_NAMES:
+        p = family_instance(fam, C, "cpu")
+        if fam != "group_lasso":
+            p, _ = at_lam_frac(p, FAMILIES["lam_frac"])
+        cfg = SolverConfig(max_iters=C["iters"], tol=-1.0, tau_adapt=False,
+                           jacobi=True, tau0=p.lipschitz / 2)
+        rc = FlexaClient(device="cpu", solver=cfg).run(SoloSpec(problem=p))
+        rg = FlexaClient(device=dev, solver=cfg).run(SoloSpec(problem=p))
+        dx = float(abs(rg.x - rc.x).max())
+        vc, vg = rc.history["V"][-1], rg.history["V"][-1]
+        v_rel = abs(vg - vc) / abs(vc)
+        check(dx <= 1e-4 and v_rel <= 1e-5 and math.isfinite(vg),
+              f"families card vs cpu {fam}: max |dx| {dx}, V rel {v_rel}")
+        out[fam] = {"max_dx": dx, "V_rel": v_rel, "V": vg}
+    return out
+
+
+def families_batch(torch, fp, dev):
+    """A logreg ``BatchSpec`` of fig1b instances (seeds 0..B−1), greedy at
+    fixed τ⁰ = max L_F / 2, against a ``SoloSpec`` of seed 0."""
+    from repro_torch.client import BatchSpec, FlexaClient, SoloSpec
+    from repro_torch.config.base import SolverConfig
+
+    B, iters = FAMILIES_BATCH["B"], FAMILIES_BATCH["iters"]
+    probs = [at_lam_frac(family_instance("logreg", FAMILIES_CHECK, dev,
+                                         seed=s), FAMILIES["lam_frac"])[0]
+             for s in range(B)]
+    cfg = SolverConfig(max_iters=iters, tol=-1.0, tau_adapt=False,
+                       tau0=max(p.lipschitz for p in probs) / 2)
+    client = FlexaClient(solver=cfg)
+    br = fp.batched_best_response
+    br.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rb = client.run(BatchSpec(problems=probs))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = br.launches
+    check(launches == iters, f"families batch: batched_best_response "
+          f"launched {launches} times in {iters} iterations")
+    V = [float(p.v(torch.as_tensor(rb.x[i], device=dev)))
+         for i, p in enumerate(probs)]
+    solo = client.run(SoloSpec(problem=probs[0], method="flexa"))
+    v_solo = float(probs[0].v(torch.as_tensor(solo.x, device=dev)))
+    v_rel = abs(V[0] - v_solo) / abs(v_solo)
+    check(all(math.isfinite(v) for v in V) and v_rel <= 1e-3,
+          f"families batch: V {V}, row 0 vs SoloSpec V rel {v_rel}")
+    return {"instances": B, "iters": iters, "wall_s": round(wall, 3),
+            "ms_per_iter": wall / iters * 1e3, "V": V,
+            "row0_vs_solo_V_rel": v_rel,
+            "row0_vs_solo_max_dx": float(abs(solo.x - rb.x[0]).max()),
+            "batched_best_response_launches": launches}
+
+
+def phase_families(torch, fp, dev):
+    """Slice 15's main path: the group-Lasso, logreg and svm families at
+    fig1d's dimensions through the client (see the module docstring)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    F = FAMILIES
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with ThreadPoolExecutor(F["gen_threads"]) as ex:
+        made = list(ex.map(lambda f: family_instance(f, F, dev),
+                           FAMILY_NAMES))
+    probs = dict(zip(FAMILY_NAMES, made))
+    del made
+    lam_max = {}
+    for fam in ("logreg", "svm"):
+        probs[fam], lam_max[fam] = at_lam_frac(probs[fam], F["lam_frac"])
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    print(f"families: instances generated in {gen_s:.2f} s, λ_max "
+          f"{lam_max}", flush=True)
+    t = time.perf_counter()
+    solo = families_solo(torch, fp, probs, dev)
+    jacobi = families_jacobi(torch, fp, probs["logreg"])
+    paths = families_paths(torch, fp, probs)
+    del probs
+    torch.cuda.empty_cache()
+    card_vs_cpu = families_card_vs_cpu(torch, dev)
+    batch = families_batch(torch, fp, dev)
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    say("families", instance="fig1d dims, seed 0", m=F["m"], n=F["n"],
+        block_size=F["block_size"], nnz_frac=F["nnz_frac"],
+        gen_s=round(gen_s, 2), lam_frac=F["lam_frac"], lam_max=lam_max,
+        two_gemv_bound_ms=bytes_ms(2 * F["m"] * F["n"] * 4),
+        solo=solo, jacobi_logreg=jacobi, paths=paths,
+        card_vs_cpu_fig1b=card_vs_cpu, batch_logreg_fig1b=batch,
+        peak_memory_gib=round(peak / 2 ** 30, 3),
+        run_s=round(time.perf_counter() - t + gen_s, 2))
 
 
 def prefill_launches(cfg):
@@ -3243,6 +3631,8 @@ def main() -> int:
         launches["batched_apply_update"] = phase_batch(torch, fp, dev)
         phase = "cv"
         phase_cv(torch, fp, dev)
+        phase = "families"
+        phase_families(torch, fp, dev)
         phase = "serve"
         serve_launches = phase_serve(torch, ssd, dev)
         phase = "serve_dense"

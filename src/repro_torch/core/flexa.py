@@ -1,7 +1,7 @@
 """Algorithm 1 — the Flexible Parallel Algorithm (FLEXA) driver.
 
   (S.1) termination: ‖x̂(xᵏ) − xᵏ‖∞ ≤ tol
-  (S.2) best response zᵏ
+  (S.2) best response zᵏ (exact or inexact, per surrogate choice)
   (S.3) selection mask from the error bound Eᵢ = ‖x̂ᵢ − xᵢᵏ‖
   (S.4) xᵏ⁺¹ = xᵏ + γᵏ (ẑᵏ − xᵏ), γᵏ from Eq. (4)
   plus the §4 practical τ-controller (double on objective increase, halve
@@ -127,8 +127,15 @@ def flexa_iteration(problem: Problem, cfg: SolverConfig,
         active_b = active if problem.block_size == 1 \
             else problem.blockify(active)[..., 0]
 
-    # (S.2) best response.
-    zhat = best_response(problem, x, grad, d)
+    # (S.2) best response; optionally inexact with the Thm-1(v) schedule.
+    if cfg.inexact_alpha1 > 0 and problem.block_size > 1:
+        inner = 5  # few inner prox-grad steps; cert recorded in info
+        zhat, cert = best_response(problem, x, grad, d,
+                                   inner_iters=inner, eps=0.0)
+    else:
+        zhat = best_response(problem, x, grad, d)
+        cert = torch.zeros(x.shape[:-1], dtype=torch.float32,
+                           device=x.device)
 
     # (S.3) error bound + selection rule.  Screened-out blocks contribute
     # E = 0, so the greedy threshold ρ·M is measured over the surviving
@@ -190,6 +197,7 @@ def flexa_iteration(problem: Problem, cfg: SolverConfig,
         "sel_frac": mask_b.mean(-1),
         "gamma": state.gamma,
         "tau_scale": tau_scale,
+        "inexact_cert": cert,
     }
     return new_state, info
 

@@ -7,7 +7,8 @@ the block-separable nonsmooth part ``G`` (kind + weight).
 Every method takes ``x`` of shape ``(n,)`` or ``(B, n)``: the batched
 engine (``repro_torch.solvers.batched``) runs B instances with a leading
 batch dimension, where the reference vmaps a per-instance problem.  In
-that case ``g_weight`` is a ``(B, 1)`` tensor of per-instance weights.
+that case ``g_weight`` is a ``(B, 1)`` tensor of per-instance weights,
+and a block-structured ``x`` has blocks ``(B, n_blocks, block_size)``.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.core.prox import soft_threshold
+from repro_torch.core.prox import group_soft_threshold, soft_threshold
 
 
 @dataclass
@@ -27,7 +28,7 @@ class Problem:
     f: Callable                 # x -> F(x)
     grad_f: Callable            # x -> ∇F(x)
     diag_curv: Callable         # x -> per-coordinate curvature majorizer of F
-    g_kind: str = "l1"          # "l1" | "zero"
+    g_kind: str = "l1"          # "l1" | "group_l2" | "zero"
     g_weight: Any = 0.0         # c: a float, or (B, 1) tensor when batched
     family: str = ""
     # Optional certificates (Nesterov instances have closed-form optima):
@@ -35,12 +36,6 @@ class Problem:
     x_star: Optional[torch.Tensor] = None
     lipschitz: Optional[float] = None   # L_F estimate
     data: dict = field(default_factory=dict)
-
-    def __post_init__(self):
-        if self.g_kind not in ("l1", "zero"):
-            raise NotImplementedError(
-                f"g_kind {self.g_kind!r} is not yet ported to repro_torch "
-                "(the port has 'l1' and 'zero')")
 
     # ------------------------------------------------------------------ #
     @property
@@ -66,7 +61,13 @@ class Problem:
     def g(self, x: torch.Tensor):
         if self._g_off():
             return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
-        s = torch.abs(x).sum(-1, keepdim=True)
+        if self.g_kind == "l1":
+            s = torch.abs(x).sum(-1, keepdim=True)
+        elif self.g_kind == "group_l2":
+            s = torch.linalg.vector_norm(self.blockify(x), dim=-1).sum(
+                -1, keepdim=True)
+        else:
+            raise ValueError(self.g_kind)
         return (self.g_weight * s).squeeze(-1)
 
     def v(self, x: torch.Tensor):
@@ -74,13 +75,33 @@ class Problem:
         return self.f(x) + self.g(x)
 
     def prox(self, w: torch.Tensor, t) -> torch.Tensor:
-        """Blockwise prox of ``t·g`` at ``w`` (t broadcastable over coords)."""
+        """Blockwise prox of ``t·g`` at ``w`` (t broadcastable over coords;
+        under ``group_l2`` each block takes the t of its first coordinate)."""
         if self._g_off():
             return w
-        return soft_threshold(w, t * self.g_weight)
+        if self.g_kind == "l1":
+            return soft_threshold(w, t * self.g_weight)
+        if self.g_kind == "group_l2":
+            tb = torch.as_tensor(t, dtype=w.dtype, device=w.device)
+            tb = self.blockify(tb.expand(w.shape))[..., :1]
+            c = self.g_weight           # a (B, 1) weight gains the block axis
+            if isinstance(c, torch.Tensor):
+                c = c.unsqueeze(-1)
+            return group_soft_threshold(self.blockify(w),
+                                        tb * c).reshape(w.shape)
+        raise ValueError(self.g_kind)
 
     def block_norms(self, x: torch.Tensor) -> torch.Tensor:
         """Per-block ℓ2 norms of a flat vector."""
         if self.block_size == 1:
             return torch.abs(x)
         return torch.linalg.vector_norm(self.blockify(x), dim=-1)
+
+    def stationarity(self, x: torch.Tensor, tau: float = 1.0):
+        """‖x − prox_g(x − ∇F(x)/τ)‖∞ — a stationarity residual.
+
+        Zero exactly at the stationary points of (1) (fixed points of the
+        best-response map, Prop. 3(b)); one per instance row.
+        """
+        w = x - self.grad_f(x) / tau
+        return torch.abs(self.prox(w, 1.0 / tau) - x).max(-1).values

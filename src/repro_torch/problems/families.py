@@ -1,12 +1,12 @@
-"""Problem-family registry (``lasso`` registered; the rest wait).
+"""Problem-family registry: ``lasso``, ``group_lasso``, ``logreg``, ``svm``.
 
 A :class:`ProblemFamily` packages what the batched engine needs to
 rebuild an instance's F closures from raw data tensors: the data keys,
 the closure builder (the very builder the solo constructor installs),
 the curvature scale used by the §4 default τ, and the screening hook of
-the λ-path.  The reference's ``group_lasso``, ``logreg`` and ``svm``
-families are not ported yet; asking for one raises
-:class:`NotImplementedError`.
+the λ-path.  G stays orthogonal: the family fixes F, while ``g_kind`` /
+``block_size`` select the prox, so sparse and group-sparse logistic
+regression are one family.
 
 :func:`problem_from_arrays` and :func:`state_from_arrays` carry host
 (numpy) data across to the port: tests hand the same arrays to both
@@ -24,10 +24,13 @@ import torch
 from repro_torch.core.flexa import FlexaState, make_generator
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.problems.base import Problem
+from repro_torch.problems.group_lasso import make_group_lasso
 from repro_torch.problems.lasso import make_lasso, quadratic_fns
+from repro_torch.problems.logreg import logistic_fns, logreg_from_z
+from repro_torch.problems.svm import squared_hinge_fns, svm_from_z
 
 #: Families of the reference that this port does not implement yet.
-NOT_YET_PORTED = ("group_lasso", "logreg", "svm")
+NOT_YET_PORTED = ()
 
 
 @dataclass(frozen=True)
@@ -45,8 +48,12 @@ class ProblemFamily:
         return self.screen_scores is not None
 
     def col_sq(self, *arrays) -> torch.Tensor:
-        """‖column‖² of the (m, n) design matrix (arrays[0])."""
+        """‖column‖² of the (m, n) design matrix (arrays[0]); a stack of
+        instances takes one reduction per instance, its solo run's (a
+        reduction over the stack sums in another order on the card)."""
         A = arrays[0]
+        if A.dim() == 3:
+            return torch.stack([self.col_sq(a) for a in A])
         return (A * A).sum(-2)
 
     def half_curv(self, col_sq) -> torch.Tensor:
@@ -65,10 +72,6 @@ def register_family(fam: ProblemFamily) -> ProblemFamily:
 
 
 def get_family(name: str) -> ProblemFamily:
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"problem family {name!r} is not yet ported to repro_torch; "
-            f"available: {available_families()}")
     try:
         return _FAMILIES[name]
     except KeyError:
@@ -86,10 +89,46 @@ def _lasso_screen_scores(grad, block_size: int):
     return torch.abs(grad)
 
 
+def _block_grad_norms(grad, block_size: int):
+    return torch.linalg.vector_norm(
+        grad.reshape(grad.shape[:-1] + (-1, block_size)), dim=-1)
+
+
+def _group_lasso_screen_scores(grad, block_size: int):
+    """Group-norm bound: ‖∇_g F(x)‖₂ per block (block KKT: a zero group is
+    optimal only if its gradient group-norm is ≤ c)."""
+    return _block_grad_norms(grad, block_size)
+
+
+def _grad_block_scores(grad, block_size: int):
+    """The generic dual-correlation bound for any smooth F: |∇ⱼF| under
+    ℓ1 blocks, ‖∇_g F‖₂ under group blocks — the KKT zero-block
+    condition is ``score_g ≤ c`` for every convex differentiable F.  The
+    strong rule's unit-slope assumption is a heuristic beyond the
+    quadratic; the KKT recheck keeps the path exact where it misses."""
+    if block_size == 1:
+        return torch.abs(grad)
+    return _block_grad_norms(grad, block_size)
+
+
 register_family(ProblemFamily(
     name="lasso", data_keys=("A", "b"),
     make_fns=quadratic_fns, curv_scale=2.0,
     screen_scores=_lasso_screen_scores))
+# Same smooth part as lasso; the group structure lives in the G side of the
+# shape signature (block_size > 1, g_kind="group_l2").
+register_family(ProblemFamily(
+    name="group_lasso", data_keys=("A", "b"),
+    make_fns=quadratic_fns, curv_scale=2.0,
+    screen_scores=_group_lasso_screen_scores))
+register_family(ProblemFamily(
+    name="logreg", data_keys=("Z",),
+    make_fns=logistic_fns, curv_scale=0.25,
+    screen_scores=_grad_block_scores))
+register_family(ProblemFamily(
+    name="svm", data_keys=("Z",),
+    make_fns=squared_hinge_fns, curv_scale=2.0,
+    screen_scores=_grad_block_scores))
 
 
 def infer_family(problem: Problem) -> str:
@@ -124,16 +163,23 @@ def problem_from_arrays(family: str, arrays: Mapping, c: float, *,
                         block_size: int = 1,
                         device=DEFAULT_DEVICE) -> Problem:
     """The port's :class:`Problem` from host arrays of a family's data
-    (``{"A": ..., "b": ...}`` for Lasso) and its weight ``c``."""
+    (``{"A": ..., "b": ...}`` for the two Lasso families, ``{"Z": ...}``
+    for logreg and svm) and its weight ``c``."""
     fam = get_family(family)
     missing = [k for k in fam.data_keys if k not in arrays]
     if missing:
         raise ValueError(f"family {family!r} needs arrays {fam.data_keys}; "
                          f"missing {missing}")
-    if family == "lasso":
-        return make_lasso(arrays["A"], arrays["b"], c,
-                          block_size=block_size, device=device)
-    raise NotImplementedError(f"no constructor for family {family!r}")
+    if family in ("lasso", "group_lasso"):
+        make = make_lasso if family == "lasso" else make_group_lasso
+        p = make(arrays["A"], arrays["b"], c, block_size=block_size,
+                 device=device)
+        if p.family != family:
+            raise ValueError(f"block_size {block_size} makes a "
+                             f"{p.family!r} problem, not {family!r}")
+        return p
+    make = logreg_from_z if family == "logreg" else svm_from_z
+    return make(arrays["Z"], c, block_size, device=device)
 
 
 def problem_on(problem: Problem, device) -> Problem:

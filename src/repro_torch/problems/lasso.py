@@ -15,24 +15,47 @@ from repro_torch.problems.base import Problem
 
 
 def _matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """A @ x for A (m, n) or (B, m, n) and x (n,) or (B, n)."""
+    """A @ x for A (m, n) and x (n,) or (B, n)."""
     return torch.matmul(A, x.unsqueeze(-1)).squeeze(-1)
 
 
 def _rmatvec(A: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """Aᵀ @ r for A (m, n) or (B, m, n) and r (m,) or (B, m)."""
+    """Aᵀ @ r for A (m, n) and r (m,) or (B, m)."""
     return torch.matmul(A.transpose(-1, -2), r.unsqueeze(-1)).squeeze(-1)
+
+
+def stacked_fns(fns) -> tuple:
+    """The closure triple of a stack of instances from one solo triple per
+    instance: row i of x runs instance i's own closures, so a batched row
+    takes its solo run's products and roundings bit for bit (one batched
+    product sums in another order, and the greedy rule's ties at ρ·max E
+    then part the trajectories)."""
+    def f(x):
+        return torch.stack([fi(xi) for (fi, _, _), xi in zip(fns, x)])
+
+    def grad_f(x):
+        return torch.stack([gi(xi) for (_, gi, _), xi in zip(fns, x)])
+
+    def diag_curv(_):
+        return torch.stack([ci(None) for _, _, ci in fns])
+
+    return f, grad_f, diag_curv
 
 
 def quadratic_fns(A, b, col_sq=None):
     """The F = ‖Ax−b‖² closure triple (f, grad_f, diag_curv).
 
     ∇F = 2Aᵀ(Ax−b) and ∂²F/∂xᵢ² = 2‖aᵢ‖².  ``A`` is (m, n), or (B, m, n)
-    with ``b`` (B, m) for a batch of instances; ``x`` may carry a leading
-    batch dimension either way.
+    with ``b`` (B, m) or (m,) for a stack of instances (closures per
+    instance: :func:`stacked_fns`); ``x`` may carry a leading batch
+    dimension either way.
     """
     if col_sq is None:
         col_sq = (A * A).sum(-2)            # ‖aᵢ‖² per column
+    if A.dim() == 3:
+        bs = b if b.dim() == 2 else [b] * A.shape[0]
+        return stacked_fns([quadratic_fns(*arrs)
+                            for arrs in zip(A, bs, col_sq)])
 
     def f(x):
         r = _matvec(A, x) - b
@@ -58,10 +81,8 @@ def _fp32(a, dev: torch.device) -> torch.Tensor:
 def make_lasso(A, b, c: float, block_size: int = 1, v_star=None,
                x_star=None, name: str = "lasso", *,
                device=DEFAULT_DEVICE) -> Problem:
-    """A Lasso :class:`Problem` on ``device`` from host or device arrays."""
-    if block_size != 1:
-        raise NotImplementedError(
-            "group Lasso (block_size > 1) is not yet ported to repro_torch")
+    """A Lasso :class:`Problem` on ``device`` from host or device arrays
+    (group Lasso, ``g_kind="group_l2"``, when ``block_size > 1``)."""
     dev = resolve_device(device)
     A, b = _fp32(A, dev), _fp32(b, dev)
     f, grad_f, diag_curv = quadratic_fns(A, b)
@@ -70,7 +91,8 @@ def make_lasso(A, b, c: float, block_size: int = 1, v_star=None,
     return Problem(
         name=name, n=A.shape[1], block_size=block_size,
         f=f, grad_f=grad_f, diag_curv=diag_curv,
-        g_kind="l1", g_weight=float(c), family="lasso",
+        g_kind="l1" if block_size == 1 else "group_l2", g_weight=float(c),
+        family="lasso" if block_size == 1 else "group_lasso",
         v_star=v_star, x_star=x_star,
         lipschitz=float(2.0 * _power_iter_sq(A)),
         data={"A": A, "b": b},

@@ -12,11 +12,14 @@ Instances share one static signature (:class:`BatchedProblemSpec`).
 When every instance carries the *same* data tensor (the λ-path: one
 design matrix at several weights) it is used once, unstacked — the
 products broadcast over the batch — instead of being copied B times.
+Stacked data run one closure triple per instance
+(:func:`repro_torch.problems.lasso.stacked_fns`).
 
 Randomized selection rules draw from one generator per batch (seeded
 from ``cfg.seed``), so their masks differ from solo runs; deterministic
-rules (the default greedy) give each row its solo trajectory up to fp32
-summation order.
+rules (the default greedy) give each row of stacked data its solo
+trajectory bit for bit, and each row of shared data its solo trajectory
+up to fp32 summation order.
 """
 from __future__ import annotations
 
@@ -70,11 +73,16 @@ def family_problem(arrays, c, spec: BatchedProblemSpec,
 def _tau_base(half_curv, cfg: SolverConfig, n: int) -> torch.Tensor:
     """The §4 default τ from ``diag_curv/2`` via the shared
     :func:`~repro_torch.core.flexa.tau0_from_colsq` (one row per
-    instance when the data are stacked)."""
+    instance when the data are stacked, each reduced as its solo run
+    reduces it)."""
     if cfg.tau0 > 0:
         return torch.full((n,), cfg.tau0, dtype=torch.float32,
                           device=half_curv.device)
-    t0 = _flexa.tau0_from_colsq(half_curv, n).to(torch.float32)
+    if half_curv.dim() == 2:
+        t0 = torch.stack([_flexa.tau0_from_colsq(h, n) for h in half_curv])
+    else:
+        t0 = _flexa.tau0_from_colsq(half_curv, n)
+    t0 = t0.to(torch.float32)
     return t0.unsqueeze(-1).expand(t0.shape + (n,))
 
 

@@ -1082,6 +1082,44 @@ def test_batch_spec_on_the_card_matches_the_cpu(cuda, jacobi):
     np.testing.assert_allclose(out["cuda"].x, out["cpu"].x, atol=1e-5)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["logreg", "group_lasso"])
+def test_reduced_family_solve_on_the_card_matches_the_cpu(cuda, family):
+    """A reduced logreg solve on the card launches the batched best
+    response once per iteration (ℓ1, scalar blocks); a reduced group
+    Lasso under the inexact ``newton_cg`` loop launches none (its prox is
+    the group shrink in torch).  Both agree with the CPU within 1e-5."""
+    from repro_torch.client import FlexaClient, SoloSpec
+    from repro_torch.config.base import SolverConfig
+    from repro_torch.problems.group_lasso import nesterov_group_instance
+    from repro_torch.problems.logreg import random_logreg_instance
+
+    iters = 150
+    kw = dict(max_iters=iters, tol=-1.0, tau_adapt=False)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = (random_logreg_instance(m=60, n=200, nnz_frac=0.1, c=0.5,
+                                    seed=1, device=dev)
+             if family == "logreg" else
+             nesterov_group_instance(m=40, n_blocks=30, block_size=5,
+                                     nnz_frac=0.2, c=1.0, seed=1,
+                                     device=dev))
+        if family == "group_lasso" and dev == "cpu":
+            # the default τ diverges at fixed τ; L_F / 8 converges
+            kw.update(surrogate="newton_cg", inexact_alpha1=0.5,
+                      tau0=p.lipschitz / 8)
+        n0 = flexa_prox.batched_best_response.launches
+        out[dev] = FlexaClient(device=dev, solver=SolverConfig(**kw)).run(
+            SoloSpec(problem=p))
+        launched = flexa_prox.batched_best_response.launches - n0
+        want = iters if dev == "cuda" and family == "logreg" else 0
+        assert launched == want, (dev, launched)
+        assert out[dev].iters == iters
+    np.testing.assert_allclose(out["cuda"].x, out["cpu"].x, atol=1e-5)
+    np.testing.assert_allclose(out["cuda"].history["V"],
+                               out["cpu"].history["V"], rtol=1e-5)
+
+
 #: (n_rows, k_active, capacity, C) of the compact_best_response sweep: the
 #: (n, 1) layout of ℓ1 block size 1, C 64, ragged 200, fig1d's m = 5000
 #: (the wide vector path) and 4999 (its scalar loop), all-padding; the

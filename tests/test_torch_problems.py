@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.problems import families as jfamilies
 from repro.problems import lasso as jlasso
 from repro_torch.device import resolve_device
 from repro_torch.problems import families, lasso
@@ -67,14 +68,14 @@ def test_problem_on_keeps_the_instance():
     assert q is p
 
 
-def test_unported_families_raise():
-    for name in families.NOT_YET_PORTED:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            families.get_family(name)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        lasso.make_lasso(np.ones((4, 6)), np.ones(4), 1.0, block_size=2,
+def test_every_reference_family_is_registered():
+    assert families.NOT_YET_PORTED == ()
+    assert families.available_families() == \
+        jfamilies.available_families() == \
+        ("group_lasso", "lasso", "logreg", "svm")
+    p = lasso.make_lasso(np.ones((4, 6)), np.ones(4), 1.0, block_size=2,
                          device="cpu")
-    assert families.available_families() == ("lasso",)
+    assert (p.family, p.g_kind, p.n_blocks) == ("group_lasso", "group_l2", 3)
 
 
 def test_cuda_default_raises_without_cuda(monkeypatch):
