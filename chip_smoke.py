@@ -95,7 +95,9 @@ each failing the run when its check fails:
                and under ``torch.profiler`` the call one device record
                (the one-cluster kernel: no memset, no second kernel).
 6. compact  — the compacted path against the masked-dense path at fig1b
-               (m=2000, n=10000, 10% nnz) on the golden grid.
+               (m=2000, n=10000, 10% nnz) on the first 4 points of the
+               10-point grid to 0.05 λ_max (``COMPACT_POINTS``; its later
+               points cost the masked-dense run 160–210 s).
 6b. batch   — slice 5's batched path (``benchmarks/fig1.py:run_batched``
                at fig1d's size): ``FlexaClient().run(BatchSpec(...))`` over
                8 fig1d instances (seeds 0–7, 16 GB of A stacked), 300
@@ -145,6 +147,39 @@ each failing the run when its check fails:
                1e-4, V within 1e-5 relative.  A logreg ``BatchSpec`` of 4
                fig1b instances, greedy for 300 iterations at fixed τ⁰ =
                max L_F / 2: row 0's V within 1e-3 of a ``SoloSpec``.
+6e. solver_serve — slice 16's main path: 24 Nesterov Lassos at fig1b's
+               dimensions from a copy of ``benchmarks/serve_load.py``'s
+               heavy-tail trace (Poisson arrivals, mean gap 12
+               slab-iteration units, Pareto 1.1 difficulty → nnz 0.05–0.18),
+               ``SolverConfig(max_iters=2500, tol=1e-7, tau_adapt=False)``,
+               ``ServeConfig(slab_capacity=8, chunk_iters=100,
+               max_batch=8)``, replayed on their arrival times through
+               ``FlexaClient(backend="continuous")`` and then
+               ``backend="wave"`` (submit, step, drain), each after an
+               untimed warm-up that calibrates the unit and profiles one
+               chunk (``batched_best_response`` records = the counter's
+               100).  Every response equals its ``SoloSpec`` on the card
+               bit for bit (x, iterations, convergence); every request is
+               served once (the continuous audit; every trace completed);
+               ``batched_best_response`` launched chunks × 100 times on the
+               continuous run and once per bucket iteration on the wave
+               run, by counter.  Printed: makespan, requests/s, p50/p99
+               latency, median step ms, occupancy, row and live
+               iterations, the wave's padding and freeze waste, the
+               admission copy ms per row, the profiled chunk's device ms
+               and busy share.  Then 4 logreg requests (c 0.1 λ_max)
+               among the trace's first 8 Lassos with ``slabs_per_tick=1``
+               (two slabs serviced from the first ticks, every response
+               bitwise its solo run); 8 Lassos under Jacobi (200 iterations, no mask:
+               ``batched_apply_update`` 200 by counter, rows bitwise);
+               a served ``PathSpec`` (8 points to 0.1 λ_max, nnz 0.05)
+               against the inline one: x within 1e-5, equal supports,
+               every point converged; 8 easy requests with the watchdog
+               on and off (bitwise, nothing quarantined), and with
+               ``compact_drain`` (bitwise the fixed capacity's, at least
+               one migration).  The solo runs are ``SoloSpec(method=
+               "flexa_compiled")``: ``flexa``'s iteration and stop, its
+               flag read every 16 iterations.
 7. serve   — slice 2's main path: full-width mamba2-1.3b (48 layers,
                random weights from a seeded generator) through
                ``ServeEngine.generate``, 4 prompts of 4096 tokens and 32
@@ -264,7 +299,7 @@ misaligned view; scalar, per-instance and dense d; c 0, a host value and
 per instance; γ·m 0, 1, 0.9 and per instance; fp32 and bf16 x: outputs
 bitwise equal to the plain versions', e2 within 1e-5 relative, a second
 launch bitwise (the batched sweep adds (1, 100000), the solver's solo
-shape); then 10 calls each of ``batched_best_response`` at (1, 100000) and
+shape, and (8, 10000), the solver_serve slab's); then 10 calls each of ``batched_best_response`` at (1, 100000) and
 (8, 100000) under ``torch.profiler``: 20 device records, each the
 one-launch kernel (no memset, no second kernel).  And
 ``compact_best_response``: C 1, 7, 64, 200, 5000 (and
@@ -403,12 +438,13 @@ BR_SHAPES = [(1,), (1000,), (2560, 2560), (2560, 6912), (50304, 2560)]
 BR_MISALIGNED = (1_000_001,)       # a view one element into its storage
 #: Shapes of the apply_update sweep (the misaligned view added as above)
 #: and (B, n) of the batched sweep: 1, ragged 1000, the solo solver's
-#: (1, 100000), the batch phase's bucket, lm_head's elements in two
-#: instances (the best response's two-level form), and rows of 1001 from
-#: a view one element into its storage (the scalar loop).
+#: (1, 100000), the batch phase's bucket, the solver_serve slab's
+#: (8, 10000), lm_head's elements in two instances (the best response's
+#: two-level form), and rows of 1001 from a view one element into its
+#: storage (the scalar loop).
 UPD_SHAPES = [(1,), (1000,), (8, 100_000), (50304, 2560)]
 BATCHED_SHAPES = [(1, 1), (1, 1000), (1, 100_000), (8, 100_000),
-                  (2, 50304 * 1280)]
+                  (8, 10_000), (2, 50304 * 1280)]
 BATCHED_MISALIGNED = (3, 1001)
 #: The batch phase: B fig1d instances (seeds 0..B−1), generated on this
 #: many host threads; each holds ≈ 10 GB of host memory while it runs.
@@ -428,6 +464,18 @@ FAMILIES = dict(m=5000, n=100_000, nnz_frac=0.05, block_size=5, seed=0,
 FAMILIES_CHECK = dict(m=2000, n=10_000, nnz_frac=0.10, block_size=5,
                       seed=0, iters=100)
 FAMILIES_BATCH = dict(B=4, iters=300)
+# Solver serving (slice 16): benchmarks/serve_load.py's heavy-tail trace
+# and its engine settings (:558-576), at fig1b's dimensions.
+SOLVER_SERVE = dict(m=2000, n=10_000, requests=24, mean_gap=12.0,
+                    tail_alpha=1.1, seed=0, nnz=(0.05, 0.18), gen_threads=4,
+                    logreg=4, logreg_lam_frac=0.1, jacobi=8,
+                    jacobi_iters=200, path_points=8, path_ratio=0.1)
+SERVE_SOLVER = dict(max_iters=2500, tol=1e-7, tau_adapt=False)
+SERVE_SLABS = dict(slab_capacity=8, chunk_iters=100, max_batch=8)
+# The compact phase runs both paths on the first points of its 10-point
+# grid (to 0.05 λ_max): the masked-dense run's later points took 160–210
+# s, which the chip's time limit no longer holds beside solver_serve.
+COMPACT_POINTS = 4
 #: Gathers of the compacted group path at fig1d: Aᵀ's blocks as rows of
 #: bs·m = 25000 floats, and the (n_blocks, 5) vectors.
 GROUP_GATHER = (20_000, 25_000, 4096)
@@ -1191,6 +1239,12 @@ def phase_kernels(torch, fp, ssd, fa, gs, dev):
             key = f"gather {n_rows}x{C} K={cap} valid={k_valid}"
             times[key] = round(graph_ms(
                 torch, lambda: fp.gather_rows(src, idx)), 4)
+        if timed == "all":          # beside the plain version and the
+            idx64 = idx.to(torch.int64)   # library's (a full bucket)
+            times[key + " plain"] = round(graph_ms(
+                torch, lambda: fp.gather_rows.plain(src, idx)), 4)
+            times[key + " index_select"] = round(graph_ms(
+                torch, lambda: torch.index_select(src, 0, idx64)), 4)
         del src, vals, base, got
 
     n, m = FIG1D["n"], FIG1D["m"]
@@ -1203,7 +1257,7 @@ def phase_kernels(torch, fp, ssd, fa, gs, dev):
     # the compacted group path: Aᵀ's blocks of bs·m floats, the C = 5
     # vectors (the scatter's general form), each full and padded
     rows, C, K = GROUP_GATHER
-    case(rows, C, K, K, torch.float32, 11, timed=True)
+    case(rows, C, K, K, torch.float32, 11, timed="all")
     case(rows, C, K * 5 // 8, K, torch.float32, 12)
     rows, C, K = GROUP_VECTOR
     case(rows, C, K, K, torch.float32, 13)
@@ -1849,14 +1903,17 @@ def phase_compact_vs_dense(torch, dev):
     from repro_torch.config.base import SolverConfig
     from repro_torch.problems.lasso import nesterov_instance
 
+    from repro_torch.path.grid import geometric_grid, lambda_max
+
     p = nesterov_instance(**FIG1B, device=dev)
     client = FlexaClient(solver=SolverConfig(tol=1e-7, max_iters=20000,
                                              tau_adapt=False))
+    grid = geometric_grid(lambda_max(p), n_points=10,
+                          lam_min_ratio=0.05)[:COMPACT_POINTS]
     runs, secs = {}, {}
     for compact in (True, False):
         t = time.perf_counter()
-        runs[compact] = client.run(PathSpec(problem=p, n_points=10,
-                                            lam_min_ratio=0.05,
+        runs[compact] = client.run(PathSpec(problem=p, lambdas=grid,
                                             compact=compact))
         torch.cuda.synchronize()
         secs[compact] = round(time.perf_counter() - t, 3)
@@ -1868,7 +1925,9 @@ def phase_compact_vs_dense(torch, dev):
     check(dx <= 1e-5, f"compact vs dense: max |dx| {dx}")
     check(worst <= 1e-5, f"block nonzero in one path only: |x| {worst}")
     check(c.device_flops < d.device_flops, "compaction saved no FLOPs")
-    say("compact", instance="fig1b", max_abs_dx=dx,
+    say("compact", instance="fig1b", points=f"the first {COMPACT_POINTS} "
+        "of 10 to 0.05 λ_max", lambdas=[float(v) for v in grid],
+        max_abs_dx=dx,
         iters_compact=[int(i) for i in c.iters],
         iters_dense=[int(i) for i in d.iters],
         converged_compact=[bool(v) for v in c.converged],
@@ -2401,6 +2460,435 @@ def phase_families(torch, fp, dev):
         card_vs_cpu_fig1b=card_vs_cpu, batch_logreg_fig1b=batch,
         peak_memory_gib=round(peak / 2 ** 30, 3),
         run_s=round(time.perf_counter() - t + gen_s, 2))
+
+
+# ------------------------------------------------------ solver serving
+def heavy_tail_trace(n, *, mean_gap, seed, tail_alpha):
+    """A copy of ``benchmarks/serve_load.py:poisson_trace(..., difficulty=
+    "pareto")`` (the bench imports the JAX package): exponential gaps of
+    ``mean_gap`` slab-iteration units, Pareto-II difficulty in [0, 1]
+    (mostly easy, a few near the cap).  [(arrival, difficulty, seed)]."""
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.exponential(mean_gap, size=n))
+    diff = np.minimum(rng.pareto(tail_alpha, size=n) / 8.0, 1.0)
+    return [(float(a), float(d), seed * 1000 + i)
+            for i, (a, d) in enumerate(zip(arrivals, diff))]
+
+
+def serve_instance(item, dev):
+    """The trace item's Nesterov Lasso at fig1b's dimensions: difficulty
+    d → nnz 0.05 + 0.13·d (``serve_load.py:build_instance``)."""
+    from repro_torch.problems.lasso import nesterov_instance
+    lo, hi = SOLVER_SERVE["nnz"]
+    return nesterov_instance(m=SOLVER_SERVE["m"], n=SOLVER_SERVE["n"],
+                             nnz_frac=lo + (hi - lo) * item[1], c=1.0,
+                             seed=item[2], device=dev)
+
+
+class SimClock:
+    """``perf_counter`` plus an offset that jumps over idle gaps
+    (``serve_load.py:SimClock``): arrivals replay at their trace times."""
+
+    def __init__(self):
+        self.offset = -time.perf_counter()
+
+    def __call__(self):
+        return time.perf_counter() + self.offset
+
+    def advance_to(self, t):
+        if t > self():
+            self.offset += t - self()
+
+
+def serve_replay(torch, backend, trace, probs, cfg, serve, unit):
+    """Replay ``trace`` (arrivals in slab-iteration units × ``unit`` s)
+    through ``FlexaClient(backend=...)``: submit what has arrived, step,
+    drain (``serve_load.py:replay_continuous``).  Returns the client, the
+    results in trace order, the telemetry and each step's wall."""
+    from repro_torch.client import FlexaClient, SoloSpec
+    from repro_torch.serve.metrics import ServeTelemetry
+
+    clock = SimClock()
+    tele = ServeTelemetry(clock=clock)
+    client = FlexaClient(backend=backend, solver=cfg, serve=serve,
+                         telemetry=tele)
+    tickets, walls, i = [], [], 0
+    while i < len(trace) or client.pending:
+        if i < len(trace) and not client.pending:
+            clock.advance_to(trace[i][0] * unit)
+        now = clock()
+        while i < len(trace) and trace[i][0] * unit <= now:
+            tickets.append(client.submit(SoloSpec(problem=probs[i]),
+                                         arrival=trace[i][0] * unit))
+            i += 1
+        if client.pending:
+            t = time.perf_counter()
+            client.step()
+            walls.append(time.perf_counter() - t)
+    done = client.drain()
+    return client, [done[t] for t in tickets], tele, walls
+
+
+def serve_summary(tele, walls, side):
+    """The replay's end-to-end numbers from its telemetry."""
+    snap = tele.snapshot()
+    reqs = tele.requests.values()
+    makespan = max(r.completed for r in reqs) - min(r.arrival for r in reqs)
+    s = snap[side]
+    out = {"makespan_s": round(makespan, 4),
+           "requests_per_s": round(snap["completed"] / makespan, 4),
+           "latency_p50_s": round(snap["latency_p50"], 4),
+           "latency_p99_s": round(snap["latency_p99"], 4),
+           "queue_wait_p99_s": round(snap["queue_wait_p99"], 4),
+           "steps": len(walls),
+           "median_step_ms": round(float(np.median(walls)) * 1e3, 3),
+           "row_iters": s["row_iters"],
+           "occupancy_mean": round(s["occupancy_mean"], 4),
+           "padding_waste": round(s["padding_waste"], 4),
+           "converged": snap["converged"], "iters_total": snap["iters_total"]}
+    if side == "continuous":
+        out.update(live_iters=s["live_iters"], chunks=s["chunks"],
+                   admitted_rows=s["admitted_rows"],
+                   admit_copy_ms_per_row=round(
+                       s["admit_copy_s"] / s["admitted_rows"] * 1e3, 3))
+    else:
+        out.update(waves=s["waves"], freeze_waste=round(s["freeze_waste"],
+                                                        4))
+    return out
+
+
+def solo_runs(cfg, probs):
+    """Each problem's ``SoloSpec`` on the card under the device-resident
+    driver (``flexa_compiled``: the solo iteration of ``flexa``, its stop
+    flag read every 16 iterations, a finished solve frozen — the same
+    bits and iterations, without a host read per iteration)."""
+    from repro_torch.client import FlexaClient, SoloSpec
+    client = FlexaClient(solver=cfg)
+    return [client.run(SoloSpec(problem=p, method="flexa_compiled"))
+            for p in probs]
+
+
+def same_as_solo(name, results, solos):
+    """Every served result equals its solo run bit for bit (x, iterations,
+    convergence); returns the largest |dx| (0.0 when it holds)."""
+    worst = 0.0
+    for j, (r, s) in enumerate(zip(results, solos)):
+        dx = float(np.abs(r.x - s.x).max())
+        worst = max(worst, dx if math.isfinite(dx) else math.inf)
+        check(r.x.tobytes() == s.x.tobytes() and r.iters == s.iters
+              and r.converged == s.converged and r.status == "ok",
+              f"{name} request {j}: max |dx| {dx}, iters {r.iters} vs "
+              f"{s.iters}, converged {r.converged} vs {s.converged}, "
+              f"status {r.status}")
+    return worst
+
+
+def serve_warm_up(torch, fp, probs, cfg, serve):
+    """Untimed warm-up of both backends on the first slab's worth of
+    requests (10000 iterations, never stopping), the calibration of the
+    slab-iteration unit (median of 3 warm chunks over ``chunk_iters``,
+    as ``serve_load.py:calibrate_unit``), and one chunk under the
+    profiler: its ``batched_best_response`` records equal the counter's
+    ``chunk_iters`` (a short profile printed and the chunk profiled
+    again, PROFILE_ATTEMPTS in all)."""
+    import dataclasses
+    from repro_torch.client import FlexaClient, SoloSpec
+
+    S, K = serve.slab_capacity, serve.chunk_iters
+    probe = dataclasses.replace(cfg, max_iters=10_000, tol=-1.0)
+    client = FlexaClient(backend="continuous", solver=probe, serve=serve)
+    for p in probs[:S]:
+        client.submit(SoloSpec(problem=p))
+    client.step()
+    client.step()
+    walls = []
+    for _ in range(3):
+        t = time.perf_counter()
+        client.step()
+        walls.append(time.perf_counter() - t)
+    unit = float(np.median(walls)) / K
+    br = fp.batched_best_response
+    names = {"batched_best_response": KERNEL_NAMES["batched_best_response"]}
+    short = []
+    for _ in range(PROFILE_ATTEMPTS):
+        br.launches = 0
+        with profiled(torch) as prof:
+            t = time.perf_counter()
+            client.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        per_kernel, busy = device_kernels(torch, prof, names)
+        got, ms = per_kernel["batched_best_response"]
+        if got == br.launches:
+            break
+        short.append({"profiler": got, "counter": br.launches,
+                      "window_edges_ms": window_edges(torch, prof)[0]})
+    check(got == br.launches == K, f"solver_serve: profiled chunk: "
+          f"profiler {got}, counter {br.launches}, want {K}; short "
+          f"profiles {short}")
+    chunk = {"wall_ms": round(wall * 1e3, 3),
+             "device_ms": round(busy[1], 3), "device_records": busy[0],
+             "busy_share": round(busy[1] / (wall * 1e3), 4),
+             "batched_best_response": [got, round(ms, 4)],
+             "classes": device_classes(torch, prof),
+             "top": top_kernels(torch, prof, n=8),
+             "short_profiles": short}
+    del prof, client
+    wave = FlexaClient(backend="wave", solver=dataclasses.replace(
+        cfg, max_iters=32, tol=-1.0), serve=serve)
+    wave.run(SoloSpec(problem=probs[0]))
+    torch.cuda.synchronize()
+    return unit, chunk
+
+
+def serve_second_signature(torch, fp, probs, solos, cfg, serve, dev):
+    """4 logreg requests at the same (m, n) (c = 0.1 λ_max) submitted
+    among the Lasso trace's first 8, ``slabs_per_tick = 1``: two slabs,
+    each tick services one in rotation; both are serviced from the first
+    ticks and every response equals its solo run bit for bit."""
+    import dataclasses
+    from repro_torch.client import FlexaClient, SoloSpec
+    from repro_torch.problems.logreg import random_logreg_instance
+
+    F = SOLVER_SERVE
+    lr = [at_lam_frac(random_logreg_instance(
+        F["m"], F["n"], F["nnz"][0], seed=s, device=dev),
+        F["logreg_lam_frac"])[0] for s in range(F["logreg"])]
+    lr_solos = solo_runs(cfg, lr)
+    client = FlexaClient(backend="continuous", solver=cfg,
+                         serve=dataclasses.replace(serve, slabs_per_tick=1))
+    probs, solos = probs[:8], solos[:8]
+    every = len(probs) // len(lr)       # a logreg after every 2 Lassos
+    order = []
+    for i, p in enumerate(probs):
+        order.append(("lasso", i, client.submit(SoloSpec(problem=p))))
+        j, rest = divmod(i + 1, every)
+        if rest == 0 and j <= len(lr):
+            order.append(("logreg", j - 1,
+                          client.submit(SoloSpec(problem=lr[j - 1]))))
+    t = time.perf_counter()
+    done = client.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    eng = client._backend._engine()
+    check(len(eng._slabs) == 2, f"solver_serve logreg: {len(eng._slabs)} "
+          "slabs")
+    first = {}
+    for rec in eng.audit:
+        first.setdefault(rec["signature"], rec["admit_tick"])
+    check(len(first) == 2 and max(first.values()) <= 2,
+          f"solver_serve logreg: first admissions {first}")
+    check(eng.telemetry.chunks <= eng._tick, "solver_serve logreg: more "
+          "chunks than ticks under slabs_per_tick = 1")
+    lr_res = [done[t] for kind, _, t in order if kind == "logreg"]
+    same_as_solo("solver_serve logreg", lr_res, lr_solos)
+    same_as_solo("solver_serve logreg's lasso",
+                 [done[t] for kind, _, t in order if kind == "lasso"], solos)
+    return {"wall_s": round(wall, 3), "ticks": eng._tick,
+            "chunks": eng.telemetry.chunks, "first_admit_tick": first,
+            "logreg_iters": [r.iters for r in lr_res],
+            "logreg_converged": [r.converged for r in lr_res]}
+
+
+def serve_jacobi(torch, fp, probs, serve):
+    """8 Lasso requests under the full rule, no masks, 200 iterations at
+    fixed τ⁰ = max L_F / 2: S.4 is ``batched_apply_update`` once per slab
+    iteration (chunks × chunk_iters, by counter: 200 at chunks of 100),
+    and every row equals its solo run bit for bit."""
+    from repro_torch.client import FlexaClient, SoloSpec
+    from repro_torch.config.base import SolverConfig
+
+    F = SOLVER_SERVE
+    ps = probs[:F["jacobi"]]
+    cfg = SolverConfig(jacobi=True, tol=-1.0, max_iters=F["jacobi_iters"],
+                       tau_adapt=False, tau0=max(p.lipschitz for p in ps) / 2)
+    solos = solo_runs(cfg, ps)
+    client = FlexaClient(backend="continuous", solver=cfg, serve=serve)
+    br, ap = fp.batched_best_response, fp.batched_apply_update
+    br.launches = ap.launches = 0
+    tickets = [client.submit(SoloSpec(problem=p)) for p in ps]
+    done = client.drain()
+    launches = {"batched_best_response": br.launches,
+                "batched_apply_update": ap.launches}
+    # one launch of each per slab iteration: chunks × chunk_iters
+    want = client.telemetry.chunks * serve.chunk_iters
+    check(want >= F["jacobi_iters"] and launches == {
+        "batched_best_response": want, "batched_apply_update": want},
+        f"solver_serve jacobi: launches {launches}, want {want} each")
+    same_as_solo("solver_serve jacobi", [done[t] for t in tickets], solos)
+    return launches
+
+
+def serve_path(torch, dev, cfg, serve):
+    """A served λ-path: ``PathSpec`` (8 points to 0.1 λ_max) on
+    ``backend="continuous"`` (``ContinuousSolverEngine.submit_path``)
+    against the inline ``PathSpec`` on the card, at fig1b's dimensions
+    and the trace's easiest density (nnz 0.05: fig1b's own 10 % needs
+    more than ``max_iters`` at 0.14 λ_max)."""
+    from repro_torch.client import FlexaClient, PathSpec
+    from repro_torch.problems.lasso import nesterov_instance
+
+    F = SOLVER_SERVE
+    p = nesterov_instance(m=F["m"], n=F["n"], nnz_frac=F["nnz"][0], c=1.0,
+                          seed=0, device=dev)
+    spec = PathSpec(problem=p, n_points=F["path_points"],
+                    lam_min_ratio=F["path_ratio"])
+    out = {}
+    for backend in ("continuous", "inline"):
+        t = time.perf_counter()
+        out[backend] = FlexaClient(backend=backend, solver=cfg,
+                                   serve=serve).run(spec)
+        torch.cuda.synchronize()
+        out[backend + "_s"] = round(time.perf_counter() - t, 3)
+    s, i = out["continuous"], out["inline"]
+    dx = float(np.abs(s.x - i.x).max())
+    check(dx <= 1e-5, f"solver_serve path: max |dx| {dx}")
+    check(bool((s.support == i.support).all()),
+          f"solver_serve path: supports {s.support} vs {i.support}")
+    check(bool(s.converged.all() and i.converged.all()),
+          f"solver_serve path: converged {s.converged}, {i.converged}")
+    return {"max_abs_dx": dx, "support": s.support.tolist(),
+            "iters_served": s.iters.tolist(),
+            "iters_inline": i.iters.tolist(),
+            "kkt_rounds": [r.kkt_rounds for r in s.screened],
+            "served_s": out["continuous_s"], "inline_s": out["inline_s"]}
+
+
+def serve_watchdog_and_drain(torch, cfg, serve, dev):
+    """8 easy requests (difficulty 0) with the watchdog on and off:
+    bitwise the same, nothing quarantined.  The same 8 with
+    ``compact_drain`` on: bitwise the fixed-capacity (watchdog-off) run,
+    the slab migrated at least once."""
+    import dataclasses
+    from repro_torch.client import FlexaClient, SoloSpec
+
+    def run(ps, **kw):
+        client = FlexaClient(backend="continuous", solver=cfg,
+                             serve=dataclasses.replace(serve, **kw))
+        tickets = [client.submit(SoloSpec(problem=p)) for p in ps]
+        t = time.perf_counter()
+        done = client.drain()
+        torch.cuda.synchronize()
+        return ([done[k] for k in tickets], client.telemetry,
+                client._backend._engine(), time.perf_counter() - t)
+
+    easy = [serve_instance((0.0, 0.0, 900_000 + i), dev) for i in range(8)]
+    on, tele_on, eng_on, on_s = run(easy, watchdog=True)
+    off, _, _, off_s = run(easy)
+    check(not eng_on.failures and "health" not in tele_on.snapshot(),
+          f"solver_serve watchdog: failures {eng_on.failures}")
+    same_as_solo("solver_serve watchdog on vs off", on, off)
+    fixed, fixed_s = off, off_s
+    moved, tele, eng, moved_s = run(easy, compact_drain=True)
+    check(tele.migrations > 0, "solver_serve drain tail: no migration")
+    same_as_solo("solver_serve drain tail vs fixed capacity", moved, fixed)
+    trail = [(r["req_id"], [(m["from_capacity"], m["to_capacity"])
+                            for m in r["migrations"]])
+             for r in eng.audit if r.get("migrations")]
+    return {"watchdog": {"on_s": round(on_s, 3), "off_s": round(off_s, 3),
+                         "iters": [r.iters for r in on]},
+            "drain_tail": {"migrations": tele.migrations, "trail": trail,
+                           "compact_s": round(moved_s, 3),
+                           "fixed_s": round(fixed_s, 3),
+                           "buckets": [r.raw.bucket for r in moved]}}
+
+
+def phase_solver_serve(torch, fp, dev):
+    """Slice 16's main path: solver serving through ``FlexaClient(backend=
+    "continuous" | "wave")`` on a heavy-tail trace of fig1b Lassos (see
+    the module docstring).  Returns the launches of the batched kernels
+    on this path."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.config.base import ServeConfig, SolverConfig
+    from repro_torch.core.flexa import CHECK_EVERY
+
+    F = SOLVER_SERVE
+    t_phase = time.perf_counter()
+    cfg = SolverConfig(**SERVE_SOLVER)
+    serve = ServeConfig(**SERVE_SLABS)
+    K = serve.chunk_iters
+    trace = heavy_tail_trace(F["requests"], mean_gap=F["mean_gap"],
+                             seed=F["seed"], tail_alpha=F["tail_alpha"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with ThreadPoolExecutor(F["gen_threads"]) as ex:
+        probs = list(ex.map(lambda it: serve_instance(it, dev), trace))
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    t = time.perf_counter()
+    solos = solo_runs(cfg, probs)
+    torch.cuda.synchronize()
+    solo_s = time.perf_counter() - t
+    unit, chunk = serve_warm_up(torch, fp, probs, cfg, serve)
+    print(f"solver_serve: {len(probs)} instances in {gen_s:.2f} s, solo "
+          f"checks {solo_s:.2f} s, unit {unit * 1e3:.4f} ms, profiled "
+          "chunk " + json.dumps(chunk), flush=True)
+    br, ap = fp.batched_best_response, fp.batched_apply_update
+    out, launches = {}, {}
+    for backend in ("continuous", "wave"):
+        br.launches = ap.launches = 0
+        client, results, tele, walls = serve_replay(
+            torch, backend, trace, probs, cfg, serve, unit)
+        launches[backend] = {"batched_best_response": br.launches,
+                             "batched_apply_update": ap.launches}
+        side = backend
+        out[backend] = serve_summary(tele, walls, side)
+        out[backend]["max_abs_dx_vs_solo"] = same_as_solo(
+            f"solver_serve {backend}", results, solos)
+        done = [r.req_id for r in tele.requests.values()
+                if r.completed is not None]
+        check(sorted(done) == sorted(tele.requests) and len(done) == len(
+            trace), f"solver_serve {backend}: {len(done)} of {len(trace)} "
+            "requests completed")
+        if backend == "continuous":
+            audit = client._backend._engine().audit
+            served = sorted(rec["req_id"] for rec in audit)
+            check(served == sorted(tele.requests) and all(
+                rec["evict_tick"] is not None for rec in audit),
+                f"solver_serve continuous: audit {served}")
+            want = tele.chunks * K
+        else:
+            # the lockstep driver checks its stop flags every CHECK_EVERY
+            # iterations: a bucket runs up to the next check past its
+            # slowest row, capped at max_iters
+            want = sum(min(CHECK_EVERY * -(-w["iters_max"] // CHECK_EVERY),
+                           cfg.max_iters) for w in tele.waves)
+        check(launches[backend] == {"batched_best_response": want,
+                                    "batched_apply_update": 0},
+              f"solver_serve {backend}: launches {launches[backend]}, "
+              f"want {want} batched_best_response")
+        print(f"solver_serve {backend}: " + json.dumps(out[backend]),
+              flush=True)
+        del client
+    second = serve_second_signature(torch, fp, probs, solos, cfg, serve,
+                                    dev)
+    print("solver_serve logreg: " + json.dumps(second), flush=True)
+    jacobi = serve_jacobi(torch, fp, probs, serve)
+    path = serve_path(torch, dev, cfg, serve)
+    health = serve_watchdog_and_drain(torch, cfg, serve, dev)
+    del probs, solos
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    m, n, S = F["m"], F["n"], serve.slab_capacity
+    say("solver_serve", instance="fig1b dims, Nesterov, nnz 0.05-0.18",
+        requests=F["requests"], trace="heavy_tail (poisson, pareto 1.1, "
+        "mean gap 12 units)", solver=SERVE_SOLVER, serve=SERVE_SLABS,
+        gen_s=round(gen_s, 2), solo_checks_s=round(solo_s, 2),
+        unit_ms=round(unit * 1e3, 4), profiled_chunk=chunk,
+        # a slab iteration: ∇F's two passes and V's one over S rows of A
+        slab_iter_bytes_bound_ms=round(bytes_ms(3 * S * m * n * 4), 4),
+        launches=launches, second_signature=second,
+        jacobi_launches=jacobi, path=path, **health,
+        peak_memory_gib=round(peak / 2 ** 30, 3),
+        run_s=round(time.perf_counter() - t_phase, 2), **out)
+    return {"batched_best_response": {
+                "solver_serve continuous": launches["continuous"][
+                    "batched_best_response"],
+                "solver_serve wave": launches["wave"][
+                    "batched_best_response"]},
+            "batched_apply_update": {
+                "solver_serve jacobi": jacobi["batched_apply_update"]}}
 
 
 def prefill_launches(cfg):
@@ -3173,7 +3661,7 @@ def br_row(torch, fp, launches, err, dev):
 
 def kernel_line(torch, fp, ssd, fa, r, launches, serve_launches, err,
                 cbr_state, gs_sweep, family_launches, vlm_encdec_launches,
-                train_ssd, dev):
+                train_ssd, serve_paths, dev):
     """Each kernel timed at the path's largest shapes: the gather of Aᵀ
     at the widest bucket K (a full bucket, so ``index_select`` computes
     the same function), and the scatter of K values into (n, 1).
@@ -3260,7 +3748,7 @@ def kernel_line(torch, fp, ssd, fa, r, launches, serve_launches, err,
     rows.append(fa_row(torch, fa, launches["flash_attention"],
                        err["flash_attention"], by_path["flash_attention"],
                        dev))
-    rows += update_rows(torch, fp, launches, err, floor, dev)
+    rows += update_rows(torch, fp, launches, err, floor, serve_paths, dev)
     rows.append(cbr_row(torch, fp, err["compact_best_response"], cbr_state,
                         floor, dev))
     rows.append(gs_row(launches["gauss_seidel_sweep"], gs_sweep))
@@ -3332,14 +3820,16 @@ def gs_row(launches, sweep):
                       for k, v in sweep.items()}}
 
 
-def update_rows(torch, fp, launches, err, floor, dev):
+def update_rows(torch, fp, launches, err, floor, serve_paths, dev):
     """apply_update at the train path's shapes (lm_head (50304, 2560)
     fp32, 0-d τ and γ·m, c = 0, in place as the optimizer calls it; and
     one step's 291 calls), times from CUDA events around back-to-back
     eager calls; the batched kernels at the batch phase's (8, 100000)
-    bucket (dense d, c and γ·m per instance) and at fig1d's solo
-    (1, 100000), device times of calls replayed from a CUDA graph (a call
-    takes microseconds) with the eager time beside.  Bounds: bytes over
+    bucket (dense d, c and γ·m per instance), at fig1d's solo
+    (1, 100000) and at the solver_serve slab's (8, 10000), device times
+    of calls replayed from a CUDA graph (a call takes microseconds) with
+    the eager time beside; their launches on the solver_serve path in
+    ``launches_by_path``.  Bounds: bytes over
     HBM — x and g read, x written (12 per fp32 element); x, g and dense d
     read, z or x written (16)."""
     x, g, d = br_inputs(torch, (50304, 2560), torch.float32, False, 71, dev)
@@ -3396,13 +3886,15 @@ def update_rows(torch, fp, launches, err, floor, dev):
     for name in ("batched_best_response", "batched_apply_update"):
         kernel = getattr(fp, name)
         timed = {}
-        for key, B in (("batch", 8), ("solo", 1)):
-            x, g, d, c = batched_inputs(torch, B, FIG1D["n"], torch.float32,
+        for key, B, n in (("batch", 8, FIG1D["n"]), ("solo", 1, FIG1D["n"]),
+                          ("serve_slab", SERVE_SLABS["slab_capacity"],
+                           SOLVER_SERVE["n"])):
+            x, g, d, c = batched_inputs(torch, B, n, torch.float32,
                                         "dense", "instance", 73, dev)
             args = (x, g, d, c) if name == "batched_best_response" \
                 else (x, g, d, c, torch.rand(B, device=dev))
             timed[key] = {
-                "shape": [B, FIG1D["n"]],
+                "shape": [B, n],
                 "ms": graph_ms(torch, lambda: kernel(*args)),
                 "eager_ms": cuda_ms(torch, lambda: kernel(*args)),
                 "plain_ms": graph_ms(torch, lambda: kernel.plain(*args)),
@@ -3423,6 +3915,7 @@ def update_rows(torch, fp, launches, err, floor, dev):
             "launches_on": ("the path phase" if name ==
                             "batched_best_response" else
                             "the batch phase's Jacobi run"),
+            "launches_by_path": serve_paths[name],
             "timed": {k: {kk: (round(vv, 6) if isinstance(vv, float)
                                else vv) for kk, vv in v.items()}
                       for k, v in timed.items()}})
@@ -3633,6 +4126,8 @@ def main() -> int:
         phase_cv(torch, fp, dev)
         phase = "families"
         phase_families(torch, fp, dev)
+        phase = "solver_serve"
+        serve_paths = phase_solver_serve(torch, fp, dev)
         phase = "serve"
         serve_launches = phase_serve(torch, ssd, dev)
         phase = "serve_dense"
@@ -3659,7 +4154,8 @@ def main() -> int:
         phase = "kernel timing"
         rows = kernel_line(torch, fp, ssd, fa, r, launches, serve_launches,
                            err, cbr_state, gs_sweep, family_launches,
-                           vlm_encdec_launches, train_ssd, dev)
+                           vlm_encdec_launches, train_ssd, serve_paths,
+                           dev)
     except Exception as exc:                          # report and fail
         print(f"FAIL {phase}: {type(exc).__name__}: {exc}", flush=True)
         raise

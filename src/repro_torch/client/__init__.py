@@ -8,33 +8,39 @@
     batch = client.run(BatchSpec(problems))
     cv = client.run(CVSpec(folds, validation=pairs))
 
-Ported: :class:`FlexaClient` with the ``inline`` backend, running
-:class:`SoloSpec`, :class:`BatchSpec`, :class:`PathSpec` and
-:class:`CVSpec`.  The serving backends and ``SolveRequest`` raise
-:class:`NotPortedError`.
+    serve = FlexaClient(backend="continuous")   # or "wave"
+    tickets = [serve.submit(SoloSpec(p)) for p in problems]
+    results = serve.drain()
+
+Ported: :class:`FlexaClient` with the ``inline``, ``wave`` and
+``continuous`` backends, running :class:`SoloSpec`, :class:`BatchSpec`,
+:class:`PathSpec` and :class:`CVSpec`, and :func:`solve_request_of`.  The
+``mesh`` and ``remote`` backends raise :class:`NotPortedError`.
 """
-from repro_torch.client.backends import (Backend, InlineBackend,
+from repro_torch.client.backends import (Backend, ContinuousBackend,
+                                         InlineBackend, WaveBackend,
                                          available_backends, make_backend,
                                          register_backend)
 from repro_torch.client.errors import (ClientError, NotPortedError,
                                        SpecError, UnknownBackendError,
                                        UnsupportedWorkloadError)
 from repro_torch.client.session import FlexaClient
-from repro_torch.client.specs import (BatchResult, BatchSpec, CVResult,
+from repro_torch.client.specs import (SERVE_PATH_FAMILIES, BatchResult,
+                                      BatchSpec, CVResult,
                                       CVSpec, PathSpec, SoloResult,
                                       SoloSpec, TicketDiagnostics, WorkItem,
                                       mse_score, normalize,
                                       solve_request_of)
-from repro_torch.config.base import ClientConfig
+from repro_torch.config.base import ClientConfig, ServeConfig
 from repro_torch.path.driver import PathResult
 
 __all__ = [
-    "FlexaClient", "ClientConfig",
+    "FlexaClient", "ClientConfig", "ServeConfig",
     "SoloSpec", "PathSpec", "BatchSpec", "CVSpec",
     "SoloResult", "BatchResult", "PathResult", "CVResult",
     "TicketDiagnostics", "WorkItem", "normalize", "mse_score",
-    "solve_request_of",
-    "Backend", "InlineBackend",
+    "solve_request_of", "SERVE_PATH_FAMILIES",
+    "Backend", "InlineBackend", "WaveBackend", "ContinuousBackend",
     "available_backends", "register_backend", "make_backend",
     "ClientError", "SpecError", "UnknownBackendError",
     "UnsupportedWorkloadError", "NotPortedError",

@@ -7,7 +7,17 @@
 
 The same ``run`` / ``submit`` take :class:`~repro_torch.client.specs.
 BatchSpec`, :class:`~repro_torch.client.specs.PathSpec` and
-:class:`~repro_torch.client.specs.CVSpec`.
+:class:`~repro_torch.client.specs.CVSpec`.  The serving backends buffer
+(``wave``) or admit (``continuous``) on ``submit``; ``step`` advances
+them one scheduler round and ``stream`` yields ``(ticket, result)`` in
+completion order::
+
+    client = FlexaClient(backend="continuous",
+                         solver=SolverConfig(tol=1e-7, tau_adapt=False),
+                         serve=ServeConfig(slab_capacity=8))
+    tickets = [client.submit(SoloSpec(p)) for p in problems]
+    for ticket, result in client.stream():
+        ...
 
 ``FlexaClient(device="cpu")`` runs on the host instead.  The default
 device is ``"cuda"``; constructing a client for it where CUDA is missing
@@ -21,7 +31,7 @@ from typing import Iterator
 from repro_torch.client.backends import Backend, make_backend
 from repro_torch.client.errors import ClientError
 from repro_torch.client.specs import TicketDiagnostics, WorkItem, normalize
-from repro_torch.config.base import ClientConfig, SolverConfig
+from repro_torch.config.base import ClientConfig, ServeConfig, SolverConfig
 from repro_torch.obs import trace as obs
 from repro_torch.serve.metrics import ServeTelemetry
 
@@ -30,13 +40,15 @@ class FlexaClient:
     """One front door: typed specs in, backend-independent results out.
 
     Pass a full :class:`ClientConfig`, or any of the ``backend=`` /
-    ``solver=`` / ``device=`` overrides (overrides win over the config
-    object's fields).
+    ``solver=`` / ``serve=`` / ``device=`` overrides (overrides win over
+    the config object's fields).  A shared :class:`ServeTelemetry` may be
+    injected for cross-engine latency accounting.
     """
 
     def __init__(self, config: ClientConfig | None = None, *,
                  backend: str | None = None,
                  solver: SolverConfig | None = None,
+                 serve: ServeConfig | None = None,
                  device: str | None = None,
                  telemetry: ServeTelemetry | None = None):
         cfg = config or ClientConfig()
@@ -44,6 +56,8 @@ class FlexaClient:
             cfg = cfg.replace(backend=backend)
         if solver is not None:
             cfg = cfg.replace(solver=solver)
+        if serve is not None:
+            cfg = cfg.replace(serve=serve)
         if device is not None:
             cfg = cfg.replace(device=device)
         self.config = cfg

@@ -7,9 +7,9 @@ one lockstep solve), :class:`PathSpec` (a warm-started, screened λ-path,
 optionally compacted) and :class:`CVSpec` (K folds down one λ-grid,
 optionally scored and λ-selected, with coarse-to-fine tol continuation).
 Results: :class:`SoloResult`, :class:`BatchResult`,
-:class:`~repro_torch.path.driver.PathResult`, :class:`CVResult`.
-:func:`solve_request_of` (the serving engines' payload) is not ported
-yet and raises :class:`~repro_torch.client.errors.NotPortedError`.
+:class:`~repro_torch.path.driver.PathResult`, :class:`CVResult` —
+identical fields whichever backend ran the work.  :func:`solve_request_of`
+is the serving engines' payload of a problem.
 """
 from __future__ import annotations
 
@@ -19,13 +19,18 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from repro_torch.client.errors import NotPortedError, SpecError
+from repro_torch.client.errors import SpecError
 from repro_torch.obs.ledger import CostLedger
 from repro_torch.path.screening import DEFAULT_KKT_SLACK
 from repro_torch.problems.base import Problem
 from repro_torch.problems.families import get_family, infer_family
+from repro_torch.serve.engine import SolveRequest
 
 KINDS = ("solo", "batch", "path", "cv")
+
+#: Families the serve-side path protocol (``repro_torch.serve.pathstate``)
+#: supports: the screenable quadratic ones with an (A, b) payload.
+SERVE_PATH_FAMILIES = ("lasso", "group_lasso")
 
 
 @dataclass
@@ -90,10 +95,25 @@ class CVSpec:
     validation: Sequence | None = None  # K (A_val, b_val) pairs
 
 
-def solve_request_of(*args, **kwargs):
-    """Not yet ported: the serve-engine payload of a problem."""
-    raise NotPortedError("SolveRequest (the serving engines) is not yet "
-                         "ported to repro_torch")
+def solve_request_of(problem: Problem, *, x0=None, active=None,
+                     priority: int = 0,
+                     deadline: float | None = None) -> SolveRequest:
+    """The serve-engine payload of a registry-family :class:`Problem`:
+    its data as host fp32 arrays (copied off the card if they live
+    there).  The leading family array rides in ``SolveRequest.A``
+    whatever the family calls it; quadratic families add ``b``."""
+    family = infer_family(problem)
+    keys = get_family(family).data_keys
+    arrays = [_host(problem.data[k]).astype(np.float32, copy=False)
+              for k in keys]
+    return SolveRequest(
+        A=arrays[0], b=arrays[1] if len(arrays) > 1 else None,
+        c=float(problem.g_weight), block_size=int(problem.block_size),
+        family=family,
+        x0=None if x0 is None else _host(x0).astype(np.float32),
+        active_mask=None if active is None
+        else _host(active).astype(np.float32),
+        priority=priority, deadline=deadline)
 
 
 @dataclass
@@ -163,12 +183,19 @@ class TicketDiagnostics:
 
 @dataclass
 class WorkItem:
-    """What a backend executes: kind + validated spec + derived facts."""
+    """What a backend executes: kind + validated spec + derived facts.
+
+    ``priority`` / ``deadline`` are service-policy annotations: the
+    continuous backend threads them into every engine request the item
+    spawns; the inline and wave backends ignore them.
+    """
     ticket: int
     kind: str                       # one of KINDS
     spec: object
     problems: list
     family: str | None              # registry family, None for ad-hoc F
+    priority: int = 0
+    deadline: float | None = None   # absolute telemetry-clock time
 
 
 def _family_of(problem: Problem) -> str | None:

@@ -44,15 +44,65 @@ class SolverConfig:
 
 
 @dataclass(frozen=True)
+class ServeConfig:
+    """Settings of the solver serving runtimes (``repro_torch.serve``),
+    field for field the reference's.
+
+    The wave engine (``SolverServeEngine``) reads ``max_batch``; the
+    continuous engine (``ContinuousSolverEngine``) the slab and scheduler
+    knobs.  The mesh fields are kept for the schema; the mesh engine is
+    not ported yet (ROADMAP Queue 1 step 12).
+    """
+
+    # --- wave engine ---
+    max_batch: int = 16         # power-of-two bucket cap per wave
+    # --- continuous engine ---
+    slab_capacity: int = 8      # live slots per (family × shape) slab
+    chunk_iters: int = 16       # FLEXA iterations per chunk step
+    # Admission-queue ordering: "fifo" (arrival order) | "priority"
+    # (higher SolveRequest.priority first) | "deadline" (earliest
+    # SolveRequest.deadline first; deadline-less requests last).
+    policy: str = "fifo"
+    # Slabs one scheduler tick services, in round-robin rotation across
+    # ticks (0 = all of them): every slab is serviced at least once every
+    # ceil(n_slabs / slabs_per_tick) ticks.
+    slabs_per_tick: int = 0
+    # --- mesh engine (not ported; ROADMAP Queue 1 step 12) ---
+    mesh_devices: int = 0
+    mesh_routing: str = "least_loaded"
+    steal_threshold: int = 1
+    # Drain-tail slab compaction: when the admission queue is empty and
+    # the live-slot count drops a power-of-two capacity bucket, migrate
+    # the stragglers into a narrower slab (and grow back on new
+    # arrivals).  The port runs one eager program at every capacity, so
+    # a migrated row keeps its trajectory bit for bit.
+    compact_drain: bool = False
+    # Numerical-health watchdog (repro_torch.obs.health): per-slot
+    # verdicts (non-finite x / V / stat, stationarity stall) computed on
+    # the device after each chunk; unhealthy slots are evicted with
+    # status "diverged" / "stalled".  The verdicts read the iteration's
+    # outputs and never write them, so healthy work is bitwise the same
+    # with the watchdog on or off.
+    watchdog: bool = False
+    # Stall patience H: quarantine a slot once its ‖x̂(x)−x‖∞ has failed
+    # to decrease for H consecutive chunks (within H+1 chunks of
+    # admission).
+    stall_patience: int = 10
+
+
+@dataclass(frozen=True)
 class ClientConfig:
     """One config for the front door (``repro_torch.client.FlexaClient``).
 
-    ``backend`` names the execution backend (only ``"inline"`` is ported);
-    ``device`` is where the client runs every workload — problems built
-    on another device are moved there.
+    ``backend`` names the execution backend: ``"inline"``, ``"wave"`` or
+    ``"continuous"`` (``"mesh"`` and ``"remote"`` are not ported yet);
+    ``serve`` carries the serving backends' knobs; ``device`` is where
+    the client runs every workload — problems built on another device
+    are moved there.
     """
 
     solver: SolverConfig = field(default_factory=SolverConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
     backend: str = "inline"
     device: str = "cuda"
 

@@ -55,6 +55,7 @@ class FlexaState(NamedTuple):
     k: torch.Tensor              # iteration counter
     stat: torch.Tensor           # ‖x̂(xᵏ)−xᵏ‖∞ of the *last* step
     gen: Optional[torch.Generator]   # randomized selection rules only
+                                     # (a serving slab: one per row)
 
 
 def make_generator(cfg: SolverConfig, device) -> torch.Generator | None:

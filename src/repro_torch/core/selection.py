@@ -6,10 +6,12 @@ arXiv:1407.4504 random / hybrid / essentially-cyclic rules.  Every rule
 returns a {0,1} float mask over the last axis of ``E``; leading axes are
 independent instances (the batched engine's batch dimension).
 
-Randomness comes from a ``torch.Generator`` seeded from ``cfg.seed``.  It
-does not reproduce JAX's threefry bits, so the randomized rules are held
-to their properties (binary, non-empty, sketch-relative greedy, cycle
-coverage), not to the reference's masks.
+Randomness comes from a ``torch.Generator`` seeded from ``cfg.seed``, or
+from a sequence of generators, one per instance row (the serving slab's
+per-request streams: row i draws from ``gen[i]`` alone, as a solo run
+seeded alike would).  It does not reproduce JAX's threefry bits, so the
+randomized rules are held to their properties (binary, non-empty,
+sketch-relative greedy, cycle coverage), not to the reference's masks.
 """
 from __future__ import annotations
 
@@ -60,7 +62,10 @@ def topk_mask(E: torch.Tensor, k: int) -> torch.Tensor:
 def random_mask(E: torch.Tensor, p: float, gen: torch.Generator
                 ) -> torch.Tensor:
     """Bernoulli(p) sketch of the blocks; an empty draw is replaced by one
-    uniformly random block, so Sᵏ is never empty."""
+    uniformly random block, so Sᵏ is never empty.  ``gen`` may be a
+    sequence of generators, one per row of ``E``."""
+    if isinstance(gen, (list, tuple)):
+        return torch.stack([random_mask(e, p, g) for e, g in zip(E, gen)])
     u = torch.rand(E.shape, generator=gen, device=E.device)
     m = (u < p).to(E.dtype)
     one = torch.randint(0, E.shape[-1], E.shape[:-1], generator=gen,

@@ -106,10 +106,14 @@ def test_default_device_is_the_card(monkeypatch):
 
 def test_unported_parts_raise(pair):
     _, pt = pair
-    for make in (lambda: solve_request_of(pt),
-                 lambda: FlexaClient(device="cpu", backend="continuous")):
+    req = solve_request_of(pt)
+    np.testing.assert_array_equal(req.A, pt.data["A"].numpy())
+    assert (req.family, req.c, req.spec.n) == ("lasso", 1.0, pt.n)
+    for backend in ("wave", "continuous"):
+        assert FlexaClient(device="cpu", backend=backend).backend == backend
+    for backend in ("mesh", "remote"):
         with pytest.raises(NotPortedError, match="not yet ported"):
-            make()
+            FlexaClient(device="cpu", backend=backend)
     with pytest.raises(UnknownBackendError):
         FlexaClient(device="cpu", backend="nope")
     client = FlexaClient(device="cpu")

@@ -1469,3 +1469,72 @@ def test_baselines_on_the_card_match_the_cpu(cuda, method, options):
         assert tgs.gauss_seidel_sweep.launches - n0 == want
     assert out["cuda"].iters == out["cpu"].iters == cfg.max_iters
     np.testing.assert_allclose(out["cuda"].x, out["cpu"].x, atol=1e-4)
+
+
+def _serve_lasso(seed, dev, m=40, n=160):
+    from repro_torch.problems.lasso import nesterov_instance
+    return nesterov_instance(m=m, n=n, nnz_frac=0.1, c=1.0, seed=seed,
+                             device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.filterwarnings("ignore::FutureWarning")
+def test_continuous_chunk_launches_the_batched_best_response(cuda):
+    """One continuous tick on the card launches ``batched_best_response``
+    once per iteration of the chunk (``chunk_iters`` times, by counter,
+    all slots in one launch), and each served row equals its solo run on
+    the card bit for bit (a row runs its instance's own closures)."""
+    from repro_torch.client import solve_request_of
+    from repro_torch.config.base import ServeConfig, SolverConfig
+    from repro_torch.serve import ContinuousSolverEngine
+    from repro_torch.solvers.api import _solve
+
+    cfg = SolverConfig(max_iters=400, tol=1e-6, tau_adapt=False)
+    K = 16
+    probs = [_serve_lasso(s, cuda) for s in range(5)]
+    eng = ContinuousSolverEngine(cfg, ServeConfig(slab_capacity=4,
+                                                  chunk_iters=K),
+                                 device=cuda)
+    ids = [eng.submit(solve_request_of(p)) for p in probs]
+    br = flexa_prox.batched_best_response
+    n0 = br.launches
+    eng.step()
+    assert br.launches - n0 == K
+    n0 = br.launches
+    resps = eng.drain()
+    assert br.launches - n0 == K * (eng.telemetry.chunks - 1)
+    for i, p in zip(ids, probs):
+        solo = _solve(p, method="flexa", cfg=cfg)
+        assert resps[i].iters == solo.iters
+        assert resps[i].x.tobytes() == solo.x.cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.filterwarnings("ignore::FutureWarning")
+def test_jacobi_slab_launches_the_batched_update(cuda):
+    """A Jacobi slab with no freeze mask takes the fused S.4 kernel once
+    per iteration; with a masked request in the slab it takes none; rows
+    equal their solo runs bit for bit either way."""
+    from repro_torch.client import solve_request_of
+    from repro_torch.config.base import ServeConfig, SolverConfig
+    from repro_torch.serve import ContinuousSolverEngine
+    from repro_torch.solvers.api import _solve
+
+    cfg = SolverConfig(max_iters=64, tol=-1.0, tau_adapt=False, jacobi=True,
+                       tau0=400.0)
+    probs = [_serve_lasso(s, cuda) for s in range(2)]
+    up = flexa_prox.batched_apply_update
+    for masked in (False, True):
+        eng = ContinuousSolverEngine(cfg, ServeConfig(slab_capacity=2,
+                                                      chunk_iters=16),
+                                     device=cuda)
+        act = np.ones(probs[0].n, np.float32) if masked else None
+        ids = [eng.submit(solve_request_of(p, active=act)) for p in probs]
+        n0 = up.launches
+        resps = eng.drain()
+        assert up.launches - n0 == (0 if masked else cfg.max_iters)
+        for i, p in zip(ids, probs):
+            solo = _solve(p, method="flexa", cfg=cfg)
+            assert resps[i].iters == cfg.max_iters
+            assert resps[i].x.tobytes() == \
+                solo.x.cpu().numpy().tobytes()
