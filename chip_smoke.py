@@ -147,7 +147,7 @@ each failing the run when its check fails:
                1e-4, V within 1e-5 relative.  A logreg ``BatchSpec`` of 4
                fig1b instances, greedy for 300 iterations at fixed τ⁰ =
                max L_F / 2: row 0's V within 1e-3 of a ``SoloSpec``.
-6e. solver_serve — slice 16's main path: 24 Nesterov Lassos at fig1b's
+6e. solver_serve — slice 16's main path: 16 Nesterov Lassos at fig1b's
                dimensions from a copy of ``benchmarks/serve_load.py``'s
                heavy-tail trace (Poisson arrivals, mean gap 12
                slab-iteration units, Pareto 1.1 difficulty → nnz 0.05–0.18),
@@ -180,6 +180,34 @@ each failing the run when its check fails:
                one migration).  The solo runs are ``SoloSpec(method=
                "flexa_compiled")``: ``flexa``'s iteration and stop, its
                flag read every 16 iterations.
+6f. remote  — slice 17's main path: ``python -m repro_torch.remote.server
+               --device cuda --tol 1e-7 --max-iters 4000 --no-tau-adapt``
+               (slab 8, chunk 16: the reference's calibrated equivalence
+               settings) as a subprocess, READY within 120 s, its slab
+               kernels loaded from the build directory setup filled (none
+               rebuilt, every launch count 0 at boot); six requests sent
+               together through ``FlexaClient(backend="remote")``: two
+               fig1b Lasso solos (seeds 0, 1), a fig1b logreg solo at 0.1
+               λ_max, a ``BatchSpec`` of two fig1b Lassos, a 4-point
+               group-Lasso ``PathSpec`` (blocks of 5) to 0.2 λ_max and
+               the cv phase's ``CVSpec`` (its sweep at tol 1e-6 as
+               ``tol_coarse``, the winner re-solved at 1e-7) with rows,
+               columns and support cut by 4 (``REMOTE_CV``: its folds
+               would exceed the server's 512 MB body limit).  Each answer within 1e-5 of
+               the same spec inline in this process, convergence flags
+               and λ grids equal, every status "ok", and its max |dx| to
+               an in-process ``backend="continuous"`` client with the
+               server's settings printed; the server's
+               ``batched_best_response`` launches (its ``/stats``) > 0.
+               A deadline already past comes back ``status="timeout"``
+               with 0 iterations; ``python -m repro_torch.obs.dashboard
+               --follow URL --ticks 1`` renders one panel (its first
+               lines printed); ``GET /stats`` printed; SIGTERM with one
+               fig1b logreg solo in flight: answered "ok", DRAINED, exit 0
+               within 60 s.  Printed per request: wire MB, encode s,
+               POST s (upload, decode, admission), round-trip s,
+               iterations; the boot and phase seconds, with the card's
+               name and power limit.
 7. serve   — slice 2's main path: full-width mamba2-1.3b (48 layers,
                random weights from a seeded generator) through
                ``ServeEngine.generate``, 4 prompts of 4096 tokens and 32
@@ -466,7 +494,7 @@ FAMILIES_CHECK = dict(m=2000, n=10_000, nnz_frac=0.10, block_size=5,
 FAMILIES_BATCH = dict(B=4, iters=300)
 # Solver serving (slice 16): benchmarks/serve_load.py's heavy-tail trace
 # and its engine settings (:558-576), at fig1b's dimensions.
-SOLVER_SERVE = dict(m=2000, n=10_000, requests=24, mean_gap=12.0,
+SOLVER_SERVE = dict(m=2000, n=10_000, requests=16, mean_gap=12.0,
                     tail_alpha=1.1, seed=0, nnz=(0.05, 0.18), gen_threads=4,
                     logreg=4, logreg_lam_frac=0.1, jacobi=8,
                     jacobi_iters=200, path_points=8, path_ratio=0.1)
@@ -2891,6 +2919,305 @@ def phase_solver_serve(torch, fp, dev):
                 "solver_serve jacobi": jacobi["batched_apply_update"]}}
 
 
+#: The remote phase (slice 17): the reference's calibrated equivalence
+#: settings (``--tol 1e-7 --max-iters 4000 --no-tau-adapt``, slab 8,
+#: chunk 16) on the card; fig1b instances; a 4-point group-Lasso path
+#: (blocks of 5) to 0.2 λ_max.
+REMOTE = dict(boot_timeout_s=120, drain_timeout_s=60, logreg_lam_frac=0.1,
+              path_points=4, path_ratio=0.2, block_size=5,
+              deadline_dims=(200, 1000))
+#: The cv phase's CV (K, P, ratio, seed, its sweep at tol 1e-6 as the
+#: request's ``tol_coarse``, the winner then re-solved at the server's
+#: 1e-7) with its rows, columns and support cut by 4, so its shape ratios
+#: hold: the cv phase's folds (4 × 8000 × 10000 fp32 with validation)
+#: would be ≈ 1.7 GB of JSON, past the server's 512 MB body limit; these
+#: are ≈ 107 MB, a fig1b request's.
+REMOTE_CV = dict(m_total=2000, n=2500, support=125, K=4, P=16, ratio=0.05,
+                 seed=0, tol=1e-6)
+REMOTE_SOLVER = dict(tol=1e-7, max_iters=4000, tau_adapt=False)
+REMOTE_SERVE = dict(slab_capacity=8, chunk_iters=16)
+
+
+class ServerProcess:
+    """``python -m repro_torch.remote.server`` as a subprocess: its stdout
+    and stderr read by threads (the READY handshake, the DRAINED line),
+    killed by :meth:`stop` if still running."""
+
+    def __init__(self, args):
+        import os
+        import threading
+        env = {**os.environ, "PYTHONPATH": str(SRC)}
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.remote.server", *args],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=str(ROOT))
+        self.out, self.err = [], []
+        self.ready = threading.Event()
+        self.port = None
+
+        def read(stream, lines, watch):
+            for line in stream:
+                lines.append(line.rstrip("\n"))
+                if watch and line.startswith("READY port="):
+                    self.port = int(line.split("=")[1])
+                    self.ready.set()
+
+        self.threads = [
+            threading.Thread(target=read, args=(self.proc.stdout, self.out,
+                                                True), daemon=True),
+            threading.Thread(target=read, args=(self.proc.stderr, self.err,
+                                                False), daemon=True)]
+        for t in self.threads:
+            t.start()
+
+    def wait_ready(self, timeout):
+        t = time.perf_counter()
+        while not self.ready.wait(0.1):
+            check(self.proc.poll() is None, "remote: server exited "
+                  f"{self.proc.returncode} before READY: "
+                  + "\n".join(self.err[-30:]))
+            check(time.perf_counter() - t < timeout, f"remote: no READY "
+                  f"within {timeout} s: " + "\n".join(self.err[-30:]))
+        return f"http://127.0.0.1:{self.port}"
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+
+
+def http_json(url, body=None, timeout=60):
+    import urllib.request
+    req = urllib.request.Request(url, data=body,
+                                 method="POST" if body else "GET")
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def remote_specs(dev):
+    """The phase's six specs by name, their problems on ``dev``."""
+    from repro_torch.client import BatchSpec, CVSpec, PathSpec, SoloSpec
+    from repro_torch.problems.group_lasso import nesterov_group_instance
+    from repro_torch.problems.lasso import make_lasso, nesterov_instance
+    from repro_torch.problems.logreg import random_logreg_instance
+
+    R, F = REMOTE, FIG1B
+    lasso = [nesterov_instance(**{**F, "seed": s}, device=dev)
+             for s in range(4)]
+    logreg = at_lam_frac(random_logreg_instance(
+        F["m"], F["n"], F["nnz_frac"], seed=0, device=dev),
+        R["logreg_lam_frac"])[0]
+    bs = R["block_size"]
+    group = nesterov_group_instance(F["m"], F["n"] // bs, bs, F["nnz_frac"],
+                                    c=1.0, seed=0, device=dev)
+    C = REMOTE_CV
+    folds, _ = make_cv_folds(C["m_total"], C["n"], C["support"], C["K"],
+                             C["seed"])
+    cv_probs = [make_lasso(A, b, c=1.0, name=f"cv_fold{i}", device=dev)
+                for i, (A, b, _, _) in enumerate(folds)]
+    return {
+        "solo_lasso_s0": SoloSpec(problem=lasso[0]),
+        "solo_lasso_s1": SoloSpec(problem=lasso[1]),
+        "solo_logreg": SoloSpec(problem=logreg),
+        "batch_lasso_x2": BatchSpec(problems=lasso[2:4]),
+        "path_group_lasso": PathSpec(problem=group,
+                                     n_points=R["path_points"],
+                                     lam_min_ratio=R["path_ratio"]),
+        "cv": CVSpec(problems=cv_probs,
+                     validation=[(Av, bv) for (_, _, Av, bv) in folds],
+                     n_points=C["P"], lam_min_ratio=C["ratio"],
+                     tol_coarse=C["tol"]),
+    }
+
+
+def result_x(res):
+    """Every solution array of a result, stacked (paths: (P, n); CV:
+    the folds' paths, then x_best)."""
+    if hasattr(res, "folds"):
+        return np.concatenate([f.x for f in res.folds] + [res.x_best])
+    return np.asarray(res.x).reshape(-1, np.asarray(res.x).shape[-1])
+
+
+def result_iters(res):
+    """(iterations, convergence) of a result: per row (batch), per point
+    (path) or per fold and point (CV)."""
+    if hasattr(res, "folds"):
+        return ([f.iters.tolist() for f in res.folds],
+                [f.converged.tolist() for f in res.folds])
+    return np.asarray(res.iters).tolist(), np.asarray(
+        res.converged).tolist()
+
+
+def result_status(res):
+    """Every status a result carries ("ok" where it has none)."""
+    status = getattr(res, "status", None) or "ok"
+    return status if isinstance(status, list) else [status]
+
+
+def result_flags(res):
+    """Convergence flags and λ grids of a result, for exact comparison."""
+    if hasattr(res, "folds"):
+        return ([f.converged.tolist() for f in res.folds],
+                [f.lambdas.tolist() for f in res.folds],
+                res.best_index)
+    if hasattr(res, "lambdas"):
+        return res.converged.tolist(), res.lambdas.tolist()
+    return np.asarray(res.converged).tolist()
+
+
+def phase_remote(torch, dev, card):
+    """Slice 17's main path: the solver service on the card.  The server
+    (``python -m repro_torch.remote.server --device cuda``) answers six
+    requests sent together over HTTP through ``FlexaClient(backend=
+    "remote")``; each is held within 1e-5 of the same spec run inline in
+    this process (convergence flags and λ grids equal), and its max |dx|
+    to an in-process ``backend="continuous"`` client with the server's
+    settings is printed.  Then a past deadline, the dashboard following
+    the live server, ``/stats``, and SIGTERM with a ticket in flight.
+    Returns the server's ``batched_best_response`` launches."""
+    import os
+    import signal
+    from repro_torch.client import (ClientConfig, FlexaClient, SoloSpec,
+                                    normalize)
+    from repro_torch.config.base import ServeConfig, SolverConfig
+    from repro_torch.problems.lasso import nesterov_instance
+    from repro_torch.problems.logreg import random_logreg_instance
+    from repro_torch.remote import protocol
+
+    t_phase = time.perf_counter()
+    cfg = SolverConfig(**REMOTE_SOLVER)
+    serve = ServeConfig(**REMOTE_SERVE)
+    t = time.perf_counter()
+    server = ServerProcess([
+        "--port", "0", "--device", dev.type, "--tol", "1e-7", "--max-iters",
+        "4000", "--no-tau-adapt", "--slab-capacity",
+        str(serve.slab_capacity), "--chunk-iters", str(serve.chunk_iters)])
+    try:
+        url = server.wait_ready(REMOTE["boot_timeout_s"])
+        boot_s = time.perf_counter() - t
+        before = http_json(f"{url}/stats")
+        check(before["device"].startswith(dev.type) and not
+              before["kernels"]["built_here_s"],
+              f"remote: server on {before['device']}, built "
+              f"{before['kernels']['built_here_s']} (the build directory "
+              "was filled by setup)")
+        check(all(v == 0 for v in before["kernels"]["launches"].values()),
+              f"remote: launches at boot {before['kernels']['launches']}")
+        t = time.perf_counter()
+        specs = remote_specs(dev)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t
+        client = FlexaClient(config=ClientConfig(
+            backend="remote", remote_url=url, remote_tenant="chip_smoke",
+            solver=cfg), device=dev)
+        # max_in_flight is 8 per tenant; the six go in together
+        reqs, tickets = {}, {}
+        t_first = time.perf_counter()
+        for name, spec in specs.items():
+            t0 = time.perf_counter()
+            ticket = client.submit(spec)
+            wire = client._backend.wire_log[ticket]
+            tickets[ticket] = name
+            reqs[name] = {"wire_mb": round(wire["bytes"] / 1e6, 3),
+                          "encode_s": round(wire["encode_s"], 3),
+                          "post_s": round(wire["post_s"], 3), "t0": t0}
+        got = {}
+        for ticket, res in client.stream():
+            name = tickets[ticket]
+            got[name] = res
+            reqs[name]["round_trip_s"] = round(
+                time.perf_counter() - reqs[name].pop("t0"), 3)
+        serve_s = time.perf_counter() - t_first
+        after = http_json(f"{url}/stats")
+        launches = after["kernels"]["launches"]
+        check(launches["batched_best_response"] > 0,
+              f"remote: the server launched no batched_best_response "
+              f"({launches})")
+        # the same specs in this process: inline (the gate), continuous
+        inline = FlexaClient(solver=cfg, device=dev)
+        cont = FlexaClient(backend="continuous", solver=cfg, serve=serve,
+                           device=dev)
+        t = time.perf_counter()
+        ref = {name: inline.run(spec) for name, spec in specs.items()}
+        torch.cuda.synchronize()
+        inline_s = time.perf_counter() - t
+        t = time.perf_counter()
+        ctk = {cont.submit(spec): name for name, spec in specs.items()}
+        cref = {ctk[k]: v for k, v in cont.drain().items()}
+        torch.cuda.synchronize()
+        cont_s = time.perf_counter() - t
+        for name, res in got.items():
+            dx = float(np.abs(result_x(res) - result_x(ref[name])).max())
+            cdx = float(np.abs(result_x(res) - result_x(cref[name])).max())
+            iters, conv = result_iters(res)
+            reqs[name].update(iters=iters, converged=conv,
+                              max_abs_dx_vs_inline=dx,
+                              max_abs_dx_vs_continuous=cdx)
+            check(dx <= 1e-5, f"remote {name}: max |dx| {dx} vs inline")
+            check(result_flags(res) == result_flags(ref[name]),
+                  f"remote {name}: flags/grid {result_flags(res)} vs "
+                  f"inline {result_flags(ref[name])}")
+            check(all(s == "ok" for s in result_status(res)),
+                  f"remote {name}: status {result_status(res)}")
+        del inline, cont, ref, cref
+        # a deadline already past: the normal eviction path, "timeout"
+        small = nesterov_instance(*REMOTE["deadline_dims"], 0.1, c=1.0,
+                                  seed=0, device=dev)
+        msg = protocol.encode_item(normalize(SoloSpec(problem=small), 0))
+        msg.update(tenant="chip_smoke", slo="interactive", deadline_s=0.0)
+        tk = http_json(f"{url}/v1/submit", protocol.dumps(msg))["ticket"]
+        late = protocol.decode_result(http_json(
+            f"{url}/v1/result/{tk}?wait_ms=20000", timeout=60))
+        check(late.status == "timeout" and late.iters == 0,
+              f"remote: past deadline gave {late.status}, {late.iters} "
+              "iterations")
+        # the dashboard follows the live server for one poll
+        dash = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs.dashboard", "--follow",
+             url, "--ticks", "1"], capture_output=True, text=True,
+            timeout=60, env={**os.environ, "PYTHONPATH": str(SRC)})
+        panel = dash.stdout.splitlines()
+        check(dash.returncode == 0 and any("poll 0" in ln for ln in panel),
+              f"remote: dashboard --follow rc {dash.returncode}: "
+              f"{dash.stdout[-500:]} {dash.stderr[-500:]}")
+        print("remote dashboard --follow:\n" + "\n".join(panel[:10]),
+              flush=True)
+        stats = http_json(f"{url}/stats")
+        print("remote GET /stats: " + json.dumps(stats), flush=True)
+        # SIGTERM with one fig1b ticket in flight (a logreg solo, ≈ 500
+        # iterations: a fig1b Lasso runs all 4000): answered, exit 0
+        last = at_lam_frac(random_logreg_instance(
+            FIG1B["m"], FIG1B["n"], FIG1B["nnz_frac"], seed=1, device=dev),
+            REMOTE["logreg_lam_frac"])[0]
+        t_drain = time.perf_counter()
+        tk = client.submit(SoloSpec(problem=last))
+        server.proc.send_signal(signal.SIGTERM)
+        res = client.result(tk)
+        rc = server.proc.wait(timeout=REMOTE["drain_timeout_s"])
+        drain_s = time.perf_counter() - t_drain
+        for th in server.threads:
+            th.join(timeout=10)
+        check(rc == 0 and "DRAINED" in server.out and res.status == "ok"
+              and res.iters > 0, f"remote: drain rc {rc}, stdout "
+              f"{server.out[-3:]}, in-flight ticket {res.status} "
+              f"{res.iters} iterations")
+    finally:
+        server.stop()
+    del specs, got, client
+    torch.cuda.empty_cache()
+    say("remote", card=card, server_boot_s=round(boot_s, 3),
+        solver=REMOTE_SOLVER, serve=REMOTE_SERVE, gen_s=round(gen_s, 2),
+        requests=reqs, served_s=round(serve_s, 3),
+        inline_s=round(inline_s, 3), continuous_s=round(cont_s, 3),
+        server_launches=launches,
+        deadline={"status": late.status, "iters": late.iters},
+        drain={"rc": rc, "in_flight_iters": res.iters,
+               "in_flight_converged": res.converged,
+               "sigterm_to_exit_s": round(drain_s, 3)},
+        phase_s=round(time.perf_counter() - t_phase, 2))
+    return launches["batched_best_response"]
+
+
 def prefill_launches(cfg):
     """Launches of each kernel in one prefill of ``cfg``: ``ssd_scan`` once
     per Mamba2 layer, ``flash_attention`` once per attention (the hybrid's
@@ -4079,6 +4406,21 @@ def ssd_row(torch, ssd, launches, err, by_path, dev):
                       for k, v in timed.items()}}
 
 
+class PhaseClock:
+    """Seconds of each phase: ``clock(name)`` ends the running phase and
+    starts ``name`` (``None``: none), returning ``name``."""
+
+    def __init__(self):
+        self.seconds, self._name, self._t = {}, None, time.perf_counter()
+
+    def __call__(self, name):
+        now = time.perf_counter()
+        if self._name is not None:
+            self.seconds[self._name] = round(now - self._t, 2)
+        self._name, self._t = name, now
+        return name
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script",
@@ -4100,58 +4442,62 @@ def main() -> int:
     KERNEL_NAMES.update(ssd.KERNEL_NAMES)
     dev = torch.device("cuda")
     t_start = time.perf_counter()
-    phase = "setup"
+    clock = PhaseClock()
+    phase = clock("setup")
     try:
         card = phase_setup(torch, build, fp, ssd, fa, gs)
-        phase = "hopper_kernels"
+        phase = clock("hopper_kernels")
         phase_hopper(torch, build, fp, fa, gs, ssd)
-        phase = "kernels"
+        phase = clock("kernels")
         err = phase_kernels(torch, fp, ssd, fa, gs, dev)
-        phase = "goldens"
+        phase = clock("goldens")
         phase_goldens(torch, dev)
-        phase = "solo"
+        phase = clock("solo")
         p = phase_solo(torch, fp, dev)
-        phase = "fig1"
+        phase = clock("fig1")
         gs_launches, gs_sweep = phase_fig1(torch, fp, gs, p, dev)
-        phase = "path"
+        phase = clock("path")
         r, launches, cbr_state = phase_path(torch, fp, p)
         launches["gauss_seidel_sweep"] = gs_launches
         del p
         torch.cuda.empty_cache()
-        phase = "compact"
+        phase = clock("compact")
         phase_compact_vs_dense(torch, dev)
-        phase = "batch"
+        phase = clock("batch")
         launches["batched_apply_update"] = phase_batch(torch, fp, dev)
-        phase = "cv"
+        phase = clock("cv")
         phase_cv(torch, fp, dev)
-        phase = "families"
+        phase = clock("families")
         phase_families(torch, fp, dev)
-        phase = "solver_serve"
+        phase = clock("solver_serve")
         serve_paths = phase_solver_serve(torch, fp, dev)
-        phase = "serve"
+        phase = clock("remote")
+        serve_paths["batched_best_response"]["remote server"] = \
+            phase_remote(torch, dev, card)
+        phase = clock("serve")
         serve_launches = phase_serve(torch, ssd, dev)
-        phase = "serve_dense"
+        phase = clock("serve_dense")
         launches["flash_attention"] = phase_serve_dense(torch, fa, dev)
-        phase = "serve_families"
+        phase = clock("serve_families")
         family_launches = phase_serve_families(torch, ssd, fa, dev)
-        phase = "serve_vlm_encdec"
+        phase = clock("serve_vlm_encdec")
         vlm_encdec_launches = phase_serve_vlm_encdec(torch, fa, dev)
-        phase = "train"
+        phase = clock("train")
         run = phase_train(torch, fp, ssd, dev)
         launches["best_response"] = run["best_response"]
         launches["apply_update"] = run["apply_update"]
-        phase = "train_ssm"
+        phase = clock("train_ssm")
         train_ssd = {f"train_ssm {TRAIN_SSM['arch']}": phase_train(
             torch, fp, ssd, dev, TRAIN_SSM, "train_ssm")}
-        phase = "train_hybrid"
+        phase = clock("train_hybrid")
         train_ssd[f"train_hybrid {TRAIN_HYBRID['arch']}"] = phase_train(
             torch, fp, ssd, dev, TRAIN_HYBRID, "train_hybrid")
-        phase = "train_families"
+        phase = clock("train_families")
         for spec in TRAIN_FAMILIES:
             phase_train(torch, fp, ssd, dev, spec, "train_families")
-        phase = "descent"
+        phase = clock("descent")
         phase_descent(torch, dev)
-        phase = "kernel timing"
+        phase = clock("kernel timing")
         rows = kernel_line(torch, fp, ssd, fa, r, launches, serve_launches,
                            err, cbr_state, gs_sweep, family_launches,
                            vlm_encdec_launches, train_ssd, serve_paths,
@@ -4159,7 +4505,9 @@ def main() -> int:
     except Exception as exc:                          # report and fail
         print(f"FAIL {phase}: {type(exc).__name__}: {exc}", flush=True)
         raise
-    say("done", total_s=round(time.perf_counter() - t_start, 2))
+    clock(None)
+    say("done", total_s=round(time.perf_counter() - t_start, 2),
+        phase_s=clock.seconds)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

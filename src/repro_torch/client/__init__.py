@@ -12,10 +12,11 @@
     tickets = [serve.submit(SoloSpec(p)) for p in problems]
     results = serve.drain()
 
-Ported: :class:`FlexaClient` with the ``inline``, ``wave`` and
-``continuous`` backends, running :class:`SoloSpec`, :class:`BatchSpec`,
-:class:`PathSpec` and :class:`CVSpec`, and :func:`solve_request_of`.  The
-``mesh`` and ``remote`` backends raise :class:`NotPortedError`.
+Ported: :class:`FlexaClient` with the ``inline``, ``wave``,
+``continuous`` and ``remote`` backends, running :class:`SoloSpec`,
+:class:`BatchSpec`, :class:`PathSpec` and :class:`CVSpec`, and
+:func:`solve_request_of`.  The ``mesh`` backend raises
+:class:`NotPortedError`.
 """
 from repro_torch.client.backends import (Backend, ContinuousBackend,
                                          InlineBackend, WaveBackend,

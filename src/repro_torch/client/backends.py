@@ -15,12 +15,15 @@ device:
   in-flight path;
 * ``continuous`` — :class:`~repro_torch.serve.continuous.
   ContinuousSolverEngine`: slot-slab continuous batching with eviction
-  and backfill; paths and CV ride the engine's point-by-point admission.
+  and backfill; paths and CV ride the engine's point-by-point admission;
+* ``remote``     — :class:`~repro_torch.remote.backend.RemoteBackend`: a
+  solver service over HTTP (registered on first use, so the client core
+  never imports the networking code).
 
 The serving backends construct their engines under
 :func:`repro_torch.deprecation.internal_use`, so the client never
-triggers the engines' legacy warnings.  The reference's ``mesh`` and
-``remote`` backends are not ported yet.
+triggers the engines' legacy warnings.  The reference's ``mesh`` backend
+is not ported yet.
 """
 from __future__ import annotations
 
@@ -48,7 +51,7 @@ from repro_torch.serve.metrics import ServeTelemetry
 from repro_torch.solvers.batched import _solve_batched
 
 #: Backends of the reference that this port does not have yet.
-NOT_YET_PORTED = ("mesh", "remote")
+NOT_YET_PORTED = ("mesh",)
 
 
 def _dims(problem) -> tuple[int, int]:
@@ -349,8 +352,14 @@ def make_backend(config: ClientConfig,
                  telemetry: ServeTelemetry) -> Backend:
     if config.backend in NOT_YET_PORTED:
         raise NotPortedError(
-            f"backend {config.backend!r} is not yet ported to repro_torch; "
-            f"available: {available_backends()}")
+            f"backend {config.backend!r} is not yet ported to repro_torch "
+            f"(ROADMAP Queue 1 step 12); available: "
+            f"{available_backends()}")
+    if config.backend == "remote" and "remote" not in _BACKENDS:
+        # The remote backend lives in its own package (repro_torch.remote)
+        # so the client core never imports networking code; load it on
+        # first use — the import registers the backend.
+        import repro_torch.remote.backend  # noqa: F401
     try:
         cls = _BACKENDS[config.backend]
     except KeyError:

@@ -6,7 +6,7 @@
   backend cannot execute it.
 * :class:`UnknownBackendError` — ``ClientConfig.backend`` names nothing.
 * :class:`NotPortedError` — the reference has it, this port not yet
-  (the ``mesh`` and ``remote`` backends).
+  (the ``mesh`` backend).
 """
 from __future__ import annotations
 

@@ -94,17 +94,30 @@ class ServeConfig:
 class ClientConfig:
     """One config for the front door (``repro_torch.client.FlexaClient``).
 
-    ``backend`` names the execution backend: ``"inline"``, ``"wave"`` or
-    ``"continuous"`` (``"mesh"`` and ``"remote"`` are not ported yet);
-    ``serve`` carries the serving backends' knobs; ``device`` is where
-    the client runs every workload — problems built on another device
-    are moved there.
+    ``backend`` names the execution backend: ``"inline"``, ``"wave"``,
+    ``"continuous"`` or ``"remote"`` (a ``repro_torch.remote`` or
+    ``repro.remote`` solver service over HTTP; ``"mesh"`` is not ported
+    yet); ``serve`` carries the serving backends' knobs; ``device`` is
+    where the client runs every workload — problems built on another
+    device are moved there.  A remote client computes nothing: its
+    ``device`` is resolved like any other (``"cuda"`` raises without
+    CUDA), and its results are host arrays as every backend's are.
     """
 
     solver: SolverConfig = field(default_factory=SolverConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
     backend: str = "inline"
     device: str = "cuda"
+    # Base URL of the solver service the "remote" backend talks to,
+    # e.g. "http://127.0.0.1:8781" — required when backend="remote",
+    # ignored otherwise.
+    remote_url: str = ""
+    # Tenant identity the remote server applies quotas/SLO policy to
+    # ("" = the server's default tenant).
+    remote_tenant: str = ""
+    # SLO class requested from the remote server ("" = the server's
+    # default class; see repro_torch.remote.policy.SLO_CLASSES).
+    remote_slo: str = ""
 
     def replace(self, **kw: Any) -> "ClientConfig":
         return dataclasses.replace(self, **kw)

@@ -15,9 +15,9 @@ from repro.client import (FlexaClient as JClient, PathSpec as JPathSpec,
 from repro.config.base import SolverConfig as JSolverConfig
 from repro.problems.lasso import nesterov_instance as jnesterov
 from repro.problems.logreg import random_logreg_instance as jlogreg
-from repro_torch.client import (FlexaClient, NotPortedError, PathSpec,
-                                SoloSpec, SpecError, UnknownBackendError,
-                                solve_request_of)
+from repro_torch.client import (ClientError, FlexaClient, NotPortedError,
+                                PathSpec, SoloSpec, SpecError,
+                                UnknownBackendError, solve_request_of)
 from repro_torch.config.base import ClientConfig, SolverConfig
 from repro_torch.problems.families import problem_from_arrays
 
@@ -111,9 +111,11 @@ def test_unported_parts_raise(pair):
     assert (req.family, req.c, req.spec.n) == ("lasso", 1.0, pt.n)
     for backend in ("wave", "continuous"):
         assert FlexaClient(device="cpu", backend=backend).backend == backend
-    for backend in ("mesh", "remote"):
-        with pytest.raises(NotPortedError, match="not yet ported"):
-            FlexaClient(device="cpu", backend=backend)
+    with pytest.raises(NotPortedError, match="not yet ported"):
+        FlexaClient(device="cpu", backend="mesh")
+    # the remote backend is ported: without a server URL it refuses
+    with pytest.raises(ClientError, match="remote_url"):
+        FlexaClient(device="cpu", backend="remote")
     with pytest.raises(UnknownBackendError):
         FlexaClient(device="cpu", backend="nope")
     client = FlexaClient(device="cpu")

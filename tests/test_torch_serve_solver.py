@@ -35,7 +35,10 @@ migration); per-request tolerance on one slab; ``expire_overdue``;
 drain-tail migration and growth; the watchdog; ``warm_from``, ``x0``
 splices and ``active_mask``; paths sharing a slab; the
 ``slabs_per_tick`` rotation; and ``FlexaClient(backend="wave" |
-"continuous")`` on every spec kind against ``backend="inline"``.
+"continuous")`` on every spec kind against ``backend="inline"`` (the
+Lasso on both; the wave backend also the group Lasso on every kind and
+logreg and svm solos and batches), each result's ledger conserved with
+the engine's keys.
 """
 import dataclasses
 from collections import Counter
@@ -65,6 +68,8 @@ from repro_torch.config.base import ServeConfig, SolverConfig
 from repro_torch.obs.health import bitwise_equal
 from repro_torch.problems.families import problem_from_arrays
 from repro_torch.problems.lasso import make_lasso, nesterov_instance
+from repro_torch.problems.logreg import random_logreg_instance
+from repro_torch.problems.svm import random_svm_instance
 from repro_torch.serve import (AdmissionQueue, ContinuousSolverEngine,
                                PathRequest, QueueEntry, SolveRequest,
                                SolverServeEngine)
@@ -820,26 +825,46 @@ def test_continuous_engine_runs_four_families_on_one_engine():
 # ------------------------------------------------------------------ #
 # The client front door                                              #
 # ------------------------------------------------------------------ #
-def _cv_folds():
+def _cv_folds(block_size=1):
     ps = [_lasso(s, m=30, n=96) for s in range(3)]
     folds = [make_lasso(p.data["A"][:20], p.data["b"][:20], c=1.0,
-                        device="cpu") for p in ps]
+                        block_size=block_size, device="cpu") for p in ps]
     val = [(p.data["A"][20:], p.data["b"][20:]) for p in ps]
     return folds, val
 
 
 KINDS = ("solo", "batch", "path", "cv")
+#: The client matrix's instances (``tests/test_client.py``'s families):
+#: the Lasso and group Lasso at one (m, n), logreg and svm at theirs.
+MATRIX_INSTANCES = {
+    "lasso": lambda s: _lasso(s, m=30, n=96),
+    "group_lasso": lambda s: _lasso(s, m=30, n=96, block_size=4),
+    "logreg": lambda s: random_logreg_instance(m=30, n=48, nnz_frac=0.2,
+                                               c=0.5, seed=s, device="cpu"),
+    "svm": lambda s: random_svm_instance(m=30, n=40, nnz_frac=0.2, c=0.5,
+                                         seed=s, device="cpu"),
+}
+#: (backend, kind, family): every kind on both serving backends for the
+#: Lasso, every kind on the wave backend for the group Lasso, solos and
+#: batches on the wave backend for logreg and svm (the serve-side path
+#: protocol covers the quadratic families, ``SERVE_PATH_FAMILIES``).
+MATRIX = ([(b, k, "lasso") for b in ("wave", "continuous") for k in KINDS]
+          + [("wave", k, "group_lasso") for k in KINDS]
+          + [("wave", k, f) for f in ("logreg", "svm")
+             for k in ("solo", "batch")])
 
 
-@pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("backend", ["wave", "continuous"])
-def test_client_backend_matches_inline(backend, kind):
+@pytest.mark.parametrize(
+    "backend,kind,family", MATRIX,
+    ids=[f"{b}-{k}" + ("" if f == "lasso" else f"-{f}")
+         for b, k, f in MATRIX])
+def test_client_backend_matches_inline(backend, kind, family):
     cfg = SolverConfig(**TOLCFG)
     serve = ServeConfig(slab_capacity=4, chunk_iters=16, max_batch=4)
     inline = FlexaClient(device="cpu", solver=cfg)
     client = FlexaClient(device="cpu", solver=cfg, serve=serve,
                          backend=backend)
-    ps = [_lasso(s, m=30, n=96) for s in range(3)]
+    ps = [MATRIX_INSTANCES[family](s) for s in range(3)]
     if kind == "solo":
         spec = SoloSpec(problem=ps[0])
     elif kind == "batch":
@@ -848,7 +873,7 @@ def test_client_backend_matches_inline(backend, kind):
     elif kind == "path":
         spec = PathSpec(problem=ps[0], n_points=6, lam_min_ratio=0.1)
     else:
-        folds, val = _cv_folds()
+        folds, val = _cv_folds(ps[0].block_size)
         spec = CVSpec(problems=folds, validation=val, n_points=6,
                       lam_min_ratio=0.1, tol_coarse=1e-3)
     t = client.submit(spec)
@@ -861,7 +886,7 @@ def test_client_backend_matches_inline(backend, kind):
         assert bitwise_equal(got.x, ref.x)
         np.testing.assert_array_equal(got.iters, ref.iters)
         np.testing.assert_array_equal(got.converged, ref.converged)
-        assert got.backend == backend and got.ledger.conserved()
+        assert got.backend == backend
     elif kind == "path":
         # each served point runs the inline driver's solo closures from
         # the same warm start and screen: the same bits
@@ -879,6 +904,11 @@ def test_client_backend_matches_inline(backend, kind):
     assert diag.done and diag.backend == backend and diag.requests
     snap = client.stats()["telemetry"]
     assert snap["completed"] == snap["requests"] and snap["in_flight"] == 0
+    # ledger conservation: the result's and the engine's ledgers have one
+    # key set, and each balances row = live + padding + freeze
+    assert got.ledger.conserved()
+    assert set(got.ledger.as_dict()) == set(snap["ledger"])
+    assert client.telemetry.ledger().conserved()
     section = "continuous" if backend == "continuous" else "wave"
     assert snap[section]["row_iters"] > 0
 
